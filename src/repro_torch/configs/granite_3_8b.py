@@ -1,0 +1,20 @@
+"""granite-3-8b — dense GQA.
+
+[hf:ibm-granite/granite-3.0-2b-base; hf]  40L d_model=4096 32H (GQA kv=8)
+d_ff=12800 vocab=49155.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-8b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12_800,
+    vocab=49_155,
+    head_dim=128,
+    rope_theta=10_000.0,
+    notes="largest dense arch in the pool; heaviest KV per token",
+)
