@@ -4,12 +4,18 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version on the card, checks the port's CUDA path
-against its CPU path on reduced configs, then serves full-width
-granite-3-8b (all 40 layers) through ``ValetServeEngine`` with and without
-KV-pool pressure under every policy, and full-width gemma3-4b at 6 layers
-with prompts past its 1024-token window.  Any failed phase exits non-zero.
+It builds the hand-written kernels from ``src/repro_torch/csrc`` (phase 1),
+holds each against its plain PyTorch version on the card (phase 2), checks
+the port's CUDA path against its CPU path on reduced configs (phase 3), then
+drives the main paths through ``ValetServeEngine`` with and without
+KV-pool pressure: full-width granite-3-8b (20 of 40 layers, every policy;
+phase 4), full-width gemma3-4b at 6 layers with prompts past its 1024-token
+window (phase 5), full-width hymba-1.5b (all 32 layers: paged, ring and SSD
+state together; phase 6) and full-width mamba2-2.7b (all 64 layers, SSD
+state only; phase 7).  Each main path runs with every kernel's launch count
+set to 0 just before it and read just after, and fails unless each of its
+kernels launched and no plain version ran on a CUDA tensor.  Any failed
+phase exits non-zero.
 
 Its last lines are the card's name and power limit, one JSON line with each
 kernel's launches on the main path, error, times and bound, and finally
@@ -182,9 +188,65 @@ def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed):
     return rec
 
 
+def ssd_case(name, b, s, h, p, g, n, chunk, dtype, seed, s_real=None):
+    """The SSD kernel against its plain version on model-like inputs: the
+    init's decay A = -linspace(1, 16) and dt = softplus(N(0, 0.5^2) +
+    dt_bias); steps past ``s_real`` are the zero padding of a prefill."""
+    from repro_torch.kernels import ssd_scan as ssd
+    dev = "cuda"
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), device=dev, generator=g_).to(dtype)
+    bm = torch.randn((b, s, g, n), device=dev, generator=g_).to(dtype)
+    cm = torch.randn((b, s, g, n), device=dev, generator=g_).to(dtype)
+    dt_bias = torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, h, device=dev)))
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((b, s, h), device=dev, generator=g_) + dt_bias)
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    if s_real is not None:
+        for t in (x, bm, cm, dt):
+            t[:, s_real:] = 0
+    y, hT = ssd.ssd_scan(x, dt, a, bm, cm, chunk)
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt, a, bm, cm, chunk)
+    torch.cuda.synchronize()
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    for what, out, ref in (("y", y, y_ref), ("h_final", hT, h_ref)):
+        if not torch.allclose(out, ref, atol=tol, rtol=tol):
+            fail(f"{name} {what}: kernel disagrees with plain version "
+                 f"(max abs err {max_err(out, ref):.3e}, tol {tol})")
+        if not torch.isfinite(out).all():
+            fail(f"{name} {what}: non-finite output")
+    el = torch.finfo(dtype).bits // 8
+    n_bytes = (b * s * h * p * el + b * s * h * 4 + h * 4 + 2 * b * s * g * n * el
+               + b * s * h * p * 4 + b * h * p * n * 4)
+    # multiply-adds x 2 per chunk: C.B^T once per group over the s <= t
+    # pairs, the masked matrix times x, C.h_prev and the state update
+    pairs = chunk * (chunk + 1) // 2
+    n_ops = 2 * b * (s // chunk) * (g * pairs * n + h * pairs * p
+                                    + 2 * h * chunk * p * n)
+    ms = time_ms(lambda: ssd.ssd_scan(x, dt, a, bm, cm, chunk))
+    plain = time_ms(lambda: ssd.ssd_scan_plain(x, dt, a, bm, cm, chunk), reps=10)
+    bms, by = bound_ms(n_bytes, n_ops, dtype)
+    err = max(max_err(y, y_ref), max_err(hT, h_ref))
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+               library_ms=None)
+    log(f"  {name}: err {err:.3e} (|y| <= {float(y_ref.abs().max()):.3g})  "
+        f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {bms:.4f} ms ({by})  "
+        f"library none")
+    return rec
+
+
 def phase_kernels():
     log("phase 2: kernels against their plain versions on the card")
     recs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt)[6:]
+        recs[("ssd", "mamba2", dt)] = ssd_case(
+            f"ssd mamba2 B1 S1024 H80 P64 G1 N128 chunk256 {tag}",
+            1, 1024, 80, 64, 1, 128, 256, dt, seed=6)
+        ssd_case(f"ssd hymba B1 S1300->1536 H50 P64 G1 N16 chunk256 {tag}",
+                 1, 1536, 50, 64, 1, 16, 256, dt, seed=7, s_real=1300)
+        ssd_case(f"ssd mamba2 B1 S77 chunk77 (ragged) {tag}",
+                 1, 77, 80, 64, 1, 128, 77, dt, seed=8)
     for qd, kd in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                    (torch.bfloat16, torch.bfloat16)):
         tag = f"q {str(qd)[6:]} pool {str(kd)[6:]}"
@@ -241,7 +303,7 @@ def phase_reduced():
     from repro_torch.models import transformer as T
     log("phase 3: reduced configs, CUDA (kernels) against CPU (plain), f32")
     ctx = T.ParallelCtx(remat=False, q_block=8, kv_block=8, loss_chunk=8)
-    for name in ("granite-3-8b", "gemma3-4b"):
+    for name in ("granite-3-8b", "gemma3-4b", "mamba2-2.7b", "hymba-1.5b"):
         cfg = reduced(ARCHS[name])
         gen = torch.Generator().manual_seed(0)
         cpu = T.init_params(cfg, generator=gen, device="cpu")
@@ -334,13 +396,14 @@ def serve_full(name, cfg, params, ctx, prompts, runs, **geom):
         fail(f"{name}: " + "; ".join(problems))
 
 
-def profile_decode(name, cfg, params, ctx, prompts, *, steps=8, **geom):
+def profile_decode(name, cfg, params, ctx, prompts, *, steps=8, pool_slots=512,
+                   **geom):
     """Profile ``steps`` steady decode steps of a full batch (admissions
     happen before the window): host wall per step, device busy time per
     step, and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import ValetServeEngine
-    eng = ValetServeEngine(params, cfg, ctx, pool_slots=512, device="cuda",
+    eng = ValetServeEngine(params, cfg, ctx, pool_slots=pool_slots, device="cuda",
                            max_batch=geom["max_batch"], max_seq=geom["max_seq"],
                            page=geom["page"])
     for p in prompts[:geom["max_batch"]]:
@@ -369,10 +432,12 @@ def profile_decode(name, cfg, params, ctx, prompts, *, steps=8, **geom):
 
 
 def phase_granite():
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import ARCHS, replace
     from repro_torch.models import transformer as T
-    log("phase 4: full-width granite-3-8b (40 layers, f32 KV pool)")
-    cfg = ARCHS["granite-3-8b"]
+    # depth cut to 20 of 40 layers so that every main path fits the run's
+    # time; the pool pressure is per page, so the preemptions are unchanged
+    log("phase 4: full-width granite-3-8b at 20 of 40 layers, f32 KV pool")
+    cfg = replace(ARCHS["granite-3-8b"], n_layers=20)
     rng = np.random.default_rng(0)
     lens = rng.choice([128, 256, 512], size=12)
     prompts = [rng.integers(2, cfg.vocab, size=int(n)) for n in lens]
@@ -430,6 +495,117 @@ def phase_gemma():
     del params
 
 
+def pressured_slots(prompts, max_batch, page):
+    """75% of the pool pages the first ``max_batch`` requests need when they
+    are admitted (prompt + 1 token each), and that need."""
+    need = sum(-(-(len(p) + 1) // page) for p in prompts[:max_batch])
+    return int(0.75 * need), need
+
+
+def exact_runs(slots, free):
+    """Unpressured reference, then every policy at ``slots`` pages.  Repoint,
+    stream and spill/restore move the bytes unchanged, so they must give the
+    unpressured tokens exactly; infiniswap's bf16 re-prefill is reported."""
+    return [(f"no pressure ({free} slots)", "valet", free, True, True),
+            (f"valet zero-restore ({slots} slots)", "valet", slots, True, True),
+            (f"valet legacy ({slots} slots)", "valet", slots, False, True),
+            (f"valet-mass ({slots} slots)", "valet-mass", slots, True, True),
+            (f"os-swap ({slots} slots)", "os-swap", slots, True, True),
+            (f"infiniswap ({slots} slots)", "infiniswap", slots, True, False)]
+
+
+def bf16_model(name, seed):
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer as T
+    cfg = ARCHS[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  bf16 weights and compute: params {n / 1e9:.3f} B ({2 * n / 1e9:.2f} GB "
+        f"if all bf16; the SSM's A_log, D and dt_bias stay f32)")
+    return cfg, params, T.ParallelCtx(remat=False, compute_dtype=torch.bfloat16)
+
+
+def phase_hymba():
+    log("phase 6: full-width hymba-1.5b (32 layers: 3 global paged, 29 "
+        "sliding-window rings, SSD state in every layer), bf16, f32 KV pool, "
+        "prompts past the 1024 window")
+    cfg, params, ctx = bf16_model("hymba-1.5b", seed=2)
+    rng = np.random.default_rng(2)
+    # 1100-1300 tokens, none a multiple of the 256-step chunk
+    lens = [int(n + (n % 256 == 0)) for n in rng.integers(1100, 1301, size=12)]
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)) for n in lens]
+    geom = dict(max_batch=8, max_seq=1344, page=16)
+    slots, need = pressured_slots(prompts, geom["max_batch"], geom["page"])
+    log(f"  prompts {lens}; the first 8 need {need} pages, pressured at {slots}")
+    serve_full("hymba-1.5b", cfg, params, ctx, prompts, exact_runs(slots, 1024),
+               max_new=32, **geom)
+    profile_decode("hymba-1.5b", cfg, params, ctx, prompts, pool_slots=1024, **geom)
+    blob_cost("hymba-1.5b", cfg, params, ctx, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+
+
+def blob_cost(name, cfg, params, ctx, prompt, reps=5):
+    """Wall time of one sequence's per-slot state (rings, SSD state and conv
+    rings) leaving for the host tier on a pause (``_read_seq_blob``: pinned
+    copies, one synchronisation) and coming back on a resume
+    (``_write_seq_blob``), and that the round trip is exact."""
+    from repro_torch.serve import ValetServeEngine
+    eng = ValetServeEngine(params, cfg, ctx, max_batch=1, max_seq=len(prompt) + 8,
+                           page=16, pool_slots=128, device="cuda")
+    rid = eng.submit(prompt, max_new=4)
+    eng.step()                        # prefill + one decode step
+    slot = eng._requests[rid].slot
+
+    def slot_state():
+        for c in eng.caches["layers"]:
+            if "ring" in c:
+                yield from (c["ring"].k[slot], c["ring"].v[slot])
+            if "ssm" in c:
+                yield from (c["ssm"]["h"][slot], c["ssm"]["conv"][slot])
+
+    before = [t.clone() for t in slot_state()]
+    n_bytes = sum(t.numel() * t.element_size() for t in before)
+    reads, writes = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = eng._read_seq_blob(slot)
+        t1 = time.perf_counter()
+        for t in slot_state():
+            t.zero_()
+        eng._write_seq_blob(slot, blob)
+        torch.cuda.synchronize()
+        reads.append(t1 - t0)
+        writes.append(time.perf_counter() - t1)
+    if not all(torch.equal(t, b) for t, b in zip(slot_state(), before)):
+        fail(f"{name}: the per-slot state did not round-trip through the host tier")
+    rd, wr = 1e3 * np.median(reads[1:]), 1e3 * np.median(writes[1:])
+    log(f"  {name} per-pause state blob: {n_bytes / 1e6:.1f} MB per sequence; "
+        f"to host {rd:.3f} ms ({n_bytes / rd / 1e6:.2f} GB/s), back "
+        f"{wr:.3f} ms ({n_bytes / wr / 1e6:.2f} GB/s), median of {reps}; "
+        f"round trip exact")
+
+
+def phase_mamba2():
+    log("phase 7: full-width mamba2-2.7b (64 layers, SSD state only, no paged "
+        "layer), bf16")
+    cfg, params, ctx = bf16_model("mamba2-2.7b", seed=3)
+    rng = np.random.default_rng(3)
+    lens = [int(n) for n in rng.choice([300, 700, 1000], size=12)]
+    prompts = [rng.integers(2, cfg.vocab, size=n) for n in lens]
+    geom = dict(max_batch=8, max_seq=1040, page=16)
+    slots, need = pressured_slots(prompts, geom["max_batch"], geom["page"])
+    log(f"  prompts {lens}; the first 8 need {need} pages, pressured at {slots}")
+    serve_full("mamba2-2.7b", cfg, params, ctx, prompts, exact_runs(slots, 1024),
+               max_new=32, **geom)
+    profile_decode("mamba2-2.7b", cfg, params, ctx, prompts, pool_slots=1024, **geom)
+    blob_cost("mamba2-2.7b", cfg, params, ctx, prompts[0])
+    del params
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -445,7 +621,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -455,7 +631,9 @@ def main():
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -469,42 +647,64 @@ def main():
             log(f"  ptxas: {line.strip()}")
     cuda_lib.load()
 
-    recs = phase_kernels() if 2 in phases else {}
+    log(f"  phase 1: {time.perf_counter() - t_start:.1f} s wall")
+    recs = {}
+    if 2 in phases:
+        t0 = time.perf_counter()
+        recs = phase_kernels()
+        log(f"  phase 2: {time.perf_counter() - t0:.1f} s wall")
     if 3 in phases:
+        t0 = time.perf_counter()
         phase_reduced()
+        log(f"  phase 3: {time.perf_counter() - t0:.1f} s wall")
 
-    # phases 4-5 are the main path: count kernel launches, and any call of a
-    # plain version on a CUDA tensor, from here on
-    plain_cuda_calls = {"paged": 0, "flash": 0}
+    # phases 4-7 are the main paths.  Each runs with every launch count and
+    # every count of plain-version calls on CUDA tensors set to 0 just
+    # before it, and read just after
+    wrappers = {"paged": (pa, "paged_attention"), "flash": (fa, "flash_attention"),
+                "ssd": (ssd, "ssd_scan")}
+    plain_cuda_calls = dict.fromkeys(wrappers, 0)
 
     def counting(fn, key):
-        def wrapped(q, *a, **kw):
-            plain_cuda_calls[key] += int(q.is_cuda)
-            return fn(q, *a, **kw)
+        def wrapped(x, *a, **kw):
+            plain_cuda_calls[key] += int(x.is_cuda)
+            return fn(x, *a, **kw)
         return wrapped
 
-    pa.paged_attention_plain = counting(pa.paged_attention_plain, "paged")
-    fa.flash_attention_plain = counting(fa.flash_attention_plain, "flash")
-    pa.paged_attention.launches = 0
-    fa.flash_attention.launches = 0
-    if 4 in phases:
-        phase_granite()
-    if 5 in phases:
-        phase_gemma()
-    launches = {"paged": pa.paged_attention.launches,
-                "flash": fa.flash_attention.launches}
-    if {4, 5} & phases:
-        if min(launches.values()) <= 0:
-            fail(f"a kernel was not launched on the main path: {launches}")
+    for key, (mod, fn) in wrappers.items():
+        setattr(mod, fn + "_plain", counting(getattr(mod, fn + "_plain"), key))
+    main_paths = [(4, "granite-3-8b", phase_granite, ("paged", "flash")),
+                  (5, "gemma3-4b", phase_gemma, ("paged", "flash")),
+                  (6, "hymba-1.5b", phase_hymba, ("paged", "flash", "ssd")),
+                  (7, "mamba2-2.7b", phase_mamba2, ("ssd",))]
+    launches = dict.fromkeys(wrappers, 0)
+    for num, name, run_path, used in main_paths:
+        if num not in phases:
+            continue
+        for key, (mod, fn) in wrappers.items():
+            getattr(mod, fn).launches = 0
+            plain_cuda_calls[key] = 0
+        t0 = time.perf_counter()
+        run_path()
+        counts = {key: getattr(mod, fn).launches for key, (mod, fn) in wrappers.items()}
+        log(f"  phase {num}: {time.perf_counter() - t0:.1f} s wall; {name} main "
+            f"path kernel launches {counts}, plain-version calls on CUDA tensors "
+            f"{plain_cuda_calls}")
+        missing = [k for k in used if counts[k] <= 0]
+        if missing:
+            fail(f"{name}: kernels {missing} were not launched on its main path")
         if any(plain_cuda_calls.values()):
-            fail(f"plain versions ran on CUDA tensors: {plain_cuda_calls}")
-    log(f"main path: kernel launches {launches}, plain-version calls on CUDA "
-        f"tensors {plain_cuda_calls}")
+            fail(f"{name}: plain versions ran on CUDA tensors: {plain_cuda_calls}")
+        for key in launches:
+            launches[key] += counts[key]
+    log(f"main paths: kernel launches {launches}; {time.perf_counter() - t_start:.1f} s "
+        f"wall in all")
 
     kernels = []
     if 2 in phases:
         p = recs[("paged", torch.bfloat16, torch.float32)]
         f = recs[("flash", 512, torch.bfloat16)]
+        d = recs[("ssd", "mamba2", torch.bfloat16)]
         kernels = [
             dict(name="paged_attention", route="cuda",
                  source="src/repro_torch/csrc/paged_attention.cu",
@@ -514,6 +714,10 @@ def main():
                  source="src/repro_torch/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:88",
                  launches=launches["flash"], **f),
+            dict(name="ssd_scan", route="cuda",
+                 source="src/repro_torch/csrc/ssd_scan.cu",
+                 replaces="src/repro/kernels/ssd_scan.py:25",
+                 launches=launches["ssd"], **d),
         ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,8 +3,10 @@
 A parameter tree is nested dicts, lists and tuples whose leaves are arrays;
 per-segment layer stacks keep their leading layer axis.  ``to_torch`` keeps
 the nesting and puts every leaf on ``device`` (optionally cast to
-``dtype``); ``to_numpy`` is its inverse.  Leaves are read through
-``np.asarray``, so anything that converts to a numpy array is accepted.
+``dtype``, except the leaves the reference holds in float32 whatever the
+weights' dtype: ``F32_LEAVES``); ``to_numpy`` is its inverse.  Leaves are
+read through ``np.asarray``, so anything that converts to a numpy array is
+accepted.
 bfloat16 arrays (numpy's ``bfloat16`` extension dtype) cross bit for bit.
 """
 from __future__ import annotations
@@ -13,6 +15,11 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+
+# leaves the reference keeps in float32 in a tree of any dtype: the SSD
+# decay, skip and dt bias (``models/ssm.py``) and the cross-attention gate
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "xgate"})
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -38,8 +45,18 @@ def _leaf_to_torch(x, device, dtype) -> torch.Tensor:
 
 def to_torch(tree: Any, device="cuda",
              dtype: Optional[torch.dtype] = None) -> Any:
-    """numpy parameter tree -> torch tensors with the same nesting."""
-    return tree_map(lambda x: _leaf_to_torch(x, device, dtype), tree)
+    """numpy parameter tree -> torch tensors with the same nesting.  With
+    ``dtype``, every leaf is cast to it except the ``F32_LEAVES``."""
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):      # NamedTuple
+            return type(t)(*(walk(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        keep = dtype is None or key in F32_LEAVES
+        return _leaf_to_torch(t, device, None if keep else dtype)
+    return walk(tree)
 
 
 def to_numpy(tree: Any) -> Any:

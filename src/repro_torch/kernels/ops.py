@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.paged_attention import paged_attention as _paged
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd
 
 
 def flash_attention_op(q, k, v, *, causal=True, window=0):
@@ -24,3 +25,10 @@ def flash_attention_op(q, k, v, *, causal=True, window=0):
 def paged_attention_op(q, k_pool, v_pool, block_table, lengths):
     """q: (B, Hq, D) one token/seq; pools: (slots, page, Hkv, D)."""
     return _paged(q, k_pool, v_pool, block_table, lengths)
+
+
+def ssd_scan_op(x, dt, A, B_mat, C_mat, *, chunk=256):
+    """SSD core scan; see ``repro_torch.models.ssm`` for the full mixer.
+    x: (B, S, H, P); dt: (B, S, H); A: (H,); B/C: (B, S, G, N)."""
+    return _ssd(x.contiguous(), dt.contiguous(), A.contiguous(),
+                B_mat.contiguous(), C_mat.contiguous(), chunk)

@@ -1,0 +1,95 @@
+"""Mamba-2 SSD chunk scan (the SSM prefill's core).
+
+The sequence is cut into chunks of ``chunk`` steps.  Within a chunk the
+output is a masked quadratic form; across chunks a (P, N) f32 state per
+(batch, head) is carried in order:
+
+  lc    = cumsum(dt * A) within the chunk,  ltot = lc[-1]
+  y_t   = sum_{s<=t} (C_t . B_s) exp(lc_t - lc_s) dt_s x_s
+          + exp(lc_t) (C_t . h_prev)
+  h     = exp(ltot) h_prev + sum_s exp(ltot - lc_s) dt_s x_s B_s^T
+
+Layout (the model's, as the reference's ``ssd_scan``):
+  x:    (B, S, H, P)  f32 or bf16     dt: (B, S, H) f32, after softplus
+  A:    (H,) f32, negative            B, C: (B, S, G, N), x's dtype;
+                                      head h reads group h // (H / G)
+Returns y (B, S, H, P) f32 and h_final (B, H, P, N) f32.  No D skip and no
+gate: the caller (``repro_torch.models.ssm``) applies them.
+
+``ssd_scan`` checks its inputs against what the kernel takes, then
+dispatches by device: a CPU tensor takes the plain PyTorch version
+``ssd_scan_plain``; a CUDA tensor launches the hand-written kernel
+(``csrc/ssd_scan.cu``) or raises on what the kernel does not take.
+``ssd_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+
+MAX_CHUNK = 256      # steps per chunk the kernel takes
+MAX_DIM = 128        # largest head_dim P and state size N the kernel takes
+
+
+def ssd_scan_plain(x, dt, A, B_mat, C_mat, chunk):
+    """``ssd_chunked`` with D = 0 (the reference's ``ssd_scan_ref``): the
+    kernel's plain version."""
+    # imported here: repro_torch.models.ssm imports this module (via ops)
+    from repro_torch.models.ssm import ssd_chunked
+    zeros = torch.zeros((x.shape[2],), dtype=torch.float32, device=x.device)
+    return ssd_chunked(x, dt, A, B_mat, C_mat, zeros, chunk)
+
+
+def _check(x, dt, A, B_mat, C_mat, chunk):
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B_mat", B_mat),
+                    ("C_mat", C_mat)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, s, h, p = x.shape
+    bb, sb, g, n = B_mat.shape
+    if (bb, sb) != (b, s) or C_mat.shape != B_mat.shape:
+        raise ValueError(f"B/C shapes {tuple(B_mat.shape)}/"
+                         f"{tuple(C_mat.shape)} do not match x {tuple(x.shape)}")
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,):
+        raise ValueError("dt must be (B, S, H) and A (H,)")
+    cuda_lib.dtype_code(x.dtype)
+    if B_mat.dtype != x.dtype or C_mat.dtype != x.dtype:
+        raise TypeError("B_mat and C_mat must have x's dtype")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError("dt and A must be float32")
+    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}] and divide "
+                         f"S={s}, got {chunk}")
+    if h % g:
+        raise ValueError(f"H={h} is not a multiple of G={g}")
+    if not (1 <= p <= MAX_DIM and 1 <= n <= MAX_DIM):
+        raise ValueError(f"kernel takes head_dim P and state N up to "
+                         f"{MAX_DIM}, got P={p} N={n}")
+
+
+def ssd_scan(x, dt, A, B_mat, C_mat, chunk):
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B/C: (B,S,G,N).
+
+    Returns y (B,S,H,P) f32, h_final (B,H,P,N) f32."""
+    _check(x, dt, A, B_mat, C_mat, chunk)
+    if not x.is_cuda:
+        return ssd_scan_plain(x, dt, A, B_mat, C_mat, chunk)
+    b, s, h, p = x.shape
+    g, n = B_mat.shape[2], B_mat.shape[3]
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
+    h_final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    lib = cuda_lib.load()
+    err = lib.valet_ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+        C_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+        b, s, h, p, g, n, chunk, cuda_lib.dtype_code(x.dtype),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, h_final
+
+
+ssd_scan.launches = 0

@@ -5,22 +5,26 @@ Layers are unrolled (heterogeneous caches per layer kind):
 
   full-attention layer   -> paged KV pool (the Valet-managed working set)
   sliding-window layer   -> ring buffer (bounded; no paging needed)
+  SSM / hybrid layer     -> O(1) SSD state + conv ring per sequence (a hybrid
+                            layer also has its attention pool or ring)
 
-The SSM, hybrid and cross-attention kinds come with their ROADMAP items.
+The cross-attention kinds come with their ROADMAP item.
 The control plane (serve/engine.py) owns slot allocation; this module is the
 data plane: given block tables + append targets it computes one decode
 step.  All paged layers share one block table — a logical page allocation
 spans every paged layer (slot i of each layer's pool).
 
 Caches are updated **in place** (the reference returns new arrays): the
-pools and rings of ``caches`` are the same tensors after a step, and only
-``lengths`` is a new tensor in the returned dict.
+pools and rings of ``caches`` are the same tensors after a step; ``lengths``
+and the SSM states are new tensors in the returned dict.
 
 Kernels on this path: decode attention over the pool is the paged kernel
 (``kernels/paged_attention.py``), reading KV through the block table with no
 gathered copy; prefill attention is the flash kernel
-(``kernels/flash_attention.py``).  On CPU tensors both run their plain
-PyTorch versions.
+(``kernels/flash_attention.py``); the SSM prefill's scan is the SSD kernel
+(``kernels/ssd_scan.py``, through ``models/ssm.py``).  SSM decode is plain
+PyTorch (the reference has no kernel for it).  On CPU tensors every kernel
+runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -33,12 +37,13 @@ from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import device_ops as dev
 from repro_torch.kernels.ops import flash_attention_op, paged_attention_op
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import combine_partials, decode_partial
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, rms_norm,
                                        swiglu)
-from repro_torch.models.transformer import (ParallelCtx, check_ported,
-                                            mask_vocab_pad, segments,
-                                            unembed_matrix)
+from repro_torch.models.transformer import (ParallelCtx, add_mixer,
+                                            check_ported, mask_vocab_pad,
+                                            segments, unembed_matrix)
 
 
 @dataclass(frozen=True)
@@ -98,6 +103,9 @@ def init_caches(cfg: ArchConfig, batch: int, *, pool_slots: int, page: int,
         if info.uses_ring:
             c["ring"] = dev.make_ring(batch, info.window, cfg.n_kv_heads,
                                       hd, dtype, device=device)
+        if info.uses_ssm:
+            c["ssm"] = ssm_lib.ssm_init_state(batch, cfg.d_model, cfg.ssm,
+                                              dtype, device=device)
         layers.append(c)
     return {"layers": layers,
             "lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -175,13 +183,18 @@ def decode_layer(p, x, info: LayerInfo, cache, cfg: ArchConfig,
     check_ported(info.kind, info.ffn)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     new_cache = dict(cache)
-    if info.uses_paged:
-        a, new_cache = _paged_attn_step(p["attn"], h, new_cache, cfg,
-                                        step_args)
-    else:
-        a, new_cache = _ring_attn_step(p["attn"], h, new_cache, cfg,
-                                       step_args, info.window)
-    x = x + a
+    a = y = None
+    if info.kind in ("attn", "hybrid"):
+        if info.uses_paged:
+            a, new_cache = _paged_attn_step(p["attn"], h, new_cache, cfg,
+                                            step_args)
+        else:
+            a, new_cache = _ring_attn_step(p["attn"], h, new_cache, cfg,
+                                           step_args, info.window)
+    if info.uses_ssm:
+        y, new_cache["ssm"] = ssm_lib.ssm_decode_step(
+            p["ssm"], h, cache["ssm"], cfg.d_model, cfg.ssm)
+    x = add_mixer(p, x, info.kind, a, y, cfg)
     if info.ffn != "none":
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         x = x + _ffn_step(p, h2, info)
@@ -260,15 +273,20 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
         p = layer_params(params, info)
         cache = dict(cache)
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
-        ap = p["attn"]
-        q = matmul(h, ap["wq"]).reshape(b, s, cfg.n_heads, hd)
-        k = matmul(h, ap["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-        v = matmul(h, ap["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-        if cfg.rope_theta > 0:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        a = flash_attention_op(q, k, v, causal=True, window=info.window)
-        a = matmul(a.reshape(b, s, -1), ap["wo"])
+        a = y = None
+        if info.kind in ("attn", "hybrid"):
+            ap = p["attn"]
+            q = matmul(h, ap["wq"]).reshape(b, s, cfg.n_heads, hd)
+            k = matmul(h, ap["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+            v = matmul(h, ap["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+            if cfg.rope_theta > 0:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+            a = flash_attention_op(q, k, v, causal=True, window=info.window)
+            a = matmul(a.reshape(b, s, -1), ap["wo"])
+        if info.uses_ssm:
+            y, cache["ssm"] = ssm_lib.ssm_forward(
+                p["ssm"], h, cfg.d_model, cfg.ssm, return_state=True)
 
         if info.uses_paged:
             page = cache["pool"].k.shape[1]
@@ -288,7 +306,7 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
             ring.k[:, tail % w] = k[:, tail].to(ring.k.dtype)
             ring.v[:, tail % w] = v[:, tail].to(ring.v.dtype)
 
-        x = x + a
+        x = add_mixer(p, x, info.kind, a, y, cfg)
         if info.ffn != "none":
             h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
             x = x + _ffn_step(p, h2.reshape(b * s, -1), info).reshape(b, s, -1)

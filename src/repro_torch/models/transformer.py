@@ -5,10 +5,12 @@ parameters are stacked on a leading layer axis, as in the reference (the
 weight bridge carries that layout over unchanged).  Heterogeneous patterns
 (gemma3's 5:1 local:global) become short segment lists.
 
-This slice ports the dense and sliding-window kinds (``attn`` segments with
-SwiGLU or GELU FFNs).  The other kinds raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.  There is no mesh: sharding comes with
-the multi-device launch layer (ROADMAP Queue 1 item 13).
+This port covers the dense and sliding-window kinds (``attn`` segments with
+SwiGLU or GELU FFNs) and the SSM kinds (``ssm``: mamba2; ``hybrid``: hymba's
+parallel attention and SSD heads).  The other kinds raise
+``NotImplementedError`` naming the ROADMAP item that brings them.  There is
+no mesh: sharding comes with the multi-device launch layer (ROADMAP Queue 1
+item 13).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
                                        rms_norm, swiglu)
 
@@ -42,8 +45,6 @@ class ParallelCtx:
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 10 (MoE)",
-    "ssm": "ROADMAP Queue 1 item 8 (SSM archs)",
-    "hybrid": "ROADMAP Queue 1 item 8 (SSM archs)",
     "xattn": "ROADMAP Queue 1 item 11 (cross-attention kinds)",
     "dec": "ROADMAP Queue 1 item 11 (cross-attention kinds)",
     "enc": "ROADMAP Queue 1 item 11 (cross-attention kinds)",
@@ -135,14 +136,40 @@ def _segments(cfg: ArchConfig) -> List[Segment]:
 # Init: stacked per segment, filled in place layer by layer
 # --------------------------------------------------------------------------
 
+def _ssm_params(n, cfg: ArchConfig, empty, zeros, device):
+    """The ``ssm`` subtree of ``n`` stacked layers, weights unfilled.
+    ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the weights'
+    dtype, as in the reference."""
+    d, ssm = cfg.d_model, cfg.ssm
+    d_inner, n_heads, d_bc = ssm_lib.ssm_dims(d, ssm)
+    k = ssm.conv_kernel
+    per_layer = lambda t: t.to(device).expand(n, -1).contiguous()
+    return {"wz": empty(n, d, d_inner), "wx": empty(n, d, d_inner),
+            "wbc": empty(n, d, d_bc), "wdt": empty(n, d, n_heads),
+            "conv_x": empty(n, k, d_inner), "conv_bc": empty(n, k, d_bc),
+            "conv_b": zeros(n, d_inner + d_bc),
+            "A_log": per_layer(torch.log(torch.linspace(1.0, 16.0, n_heads))),
+            "D": torch.ones((n, n_heads), dtype=torch.float32, device=device),
+            "dt_bias": per_layer(torch.log(torch.expm1(
+                torch.linspace(1e-3, 1e-1, n_heads)))),
+            "gate_norm": zeros(n, d_inner),
+            "out_proj": empty(n, d_inner, d)}
+
+
+_SSM_RANDOM = {"wz": 0.02, "wx": 0.02, "wbc": 0.02, "wdt": 0.02,
+               "conv_x": 0.5, "conv_bc": 0.5, "out_proj": 0.02}
+
+
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 dtype=torch.float32, device="cuda"):
-    """Random parameters with the reference's shapes and scales: N(0, 0.02)
-    weights, ``wo`` at 0.02 / sqrt(2 L), zero norms.  Each stacked tensor is
-    allocated once and filled layer by layer in place, so a full-width init
-    never holds two copies.  ``generator`` must live on ``device``.  The
-    numbers differ from the reference's ``jax.random`` draws; parity tests
-    carry the reference's parameters over with ``repro_torch.bridge``."""
+    """Random parameters with the reference's shapes, dtypes and scales:
+    N(0, 0.02) weights, ``wo`` at 0.02 / sqrt(2 L), SSM conv weights at
+    0.5, zero norms, and the reference's fixed SSM decay, skip and dt bias.
+    Each stacked tensor is allocated once and filled layer by layer in
+    place, so a full-width init never holds two copies.  ``generator`` must
+    live on ``device``.  The numbers differ from the reference's
+    ``jax.random`` draws; parity tests carry the reference's parameters
+    over with ``repro_torch.bridge``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
@@ -152,21 +179,34 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     for seg in segments(cfg):
         check_ported(seg.kind, seg.ffn)
         n, f = seg.count, seg.d_ff or cfg.d_ff
-        attn = {"wq": empty(n, d, cfg.n_heads * hd),
-                "wk": empty(n, d, cfg.n_kv_heads * hd),
-                "wv": empty(n, d, cfg.n_kv_heads * hd),
-                "wo": empty(n, cfg.n_heads * hd, d)}
-        if seg.ffn == "gelu":
-            mlp = {"wi": empty(n, d, f), "wo": empty(n, f, d)}
-        else:
-            mlp = {"wgu": empty(n, d, 2 * f), "wd": empty(n, f, d)}
+        layer = {"ln1": zeros(n, d)}
+        random = []                     # (tensor, scale), filled in order
+        if seg.kind in ("attn", "hybrid"):
+            layer["attn"] = {"wq": empty(n, d, cfg.n_heads * hd),
+                             "wk": empty(n, d, cfg.n_kv_heads * hd),
+                             "wv": empty(n, d, cfg.n_kv_heads * hd),
+                             "wo": empty(n, cfg.n_heads * hd, d)}
+            random += [(w, wo_scale if name == "wo" else 0.02)
+                       for name, w in layer["attn"].items()]
+        if seg.kind in ("ssm", "hybrid"):
+            layer["ssm"] = _ssm_params(n, cfg, empty, zeros, device)
+            random += [(layer["ssm"][name], scale)
+                       for name, scale in _SSM_RANDOM.items()]
+        if seg.kind == "hybrid":
+            layer["attn_norm"] = zeros(n, d)
+            layer["ssm_norm"] = zeros(n, d)
+        if seg.ffn != "none":
+            if seg.ffn == "gelu":
+                mlp = {"wi": empty(n, d, f), "wo": empty(n, f, d)}
+            else:
+                mlp = {"wgu": empty(n, d, 2 * f), "wd": empty(n, f, d)}
+            layer["ln2"] = zeros(n, d)
+            layer["mlp"] = mlp
+            random += [(w, 0.02) for w in mlp.values()]
         for i in range(n):
-            for name, w in attn.items():
-                normal_(w[i], generator, wo_scale if name == "wo" else 0.02)
-            for w in mlp.values():
-                normal_(w[i], generator)
-        params["segments"].append({"ln1": zeros(n, d), "attn": attn,
-                                   "ln2": zeros(n, d), "mlp": mlp})
+            for w, scale in random:
+                normal_(w[i], generator, scale)
+        params["segments"].append(layer)
     if not cfg.tie_embeddings:
         params["unembed"] = normal_(empty(d, cfg.padded_vocab), generator)
     return params
@@ -202,13 +242,30 @@ def _apply_ffn(p, x, seg: Segment):
     return swiglu(p["mlp"], x)
 
 
+def add_mixer(p, x, kind, a, y, cfg: ArchConfig):
+    """The residual add of a layer's mixer: the attention output ``a``, the
+    SSM output ``y``, or (hybrid) the mean of the two after each branch's
+    norm."""
+    if kind == "attn":
+        return x + a
+    if kind == "ssm":
+        return x + y
+    return x + 0.5 * (rms_norm(p["attn_norm"], a, cfg.norm_eps)
+                      + rms_norm(p["ssm_norm"], y, cfg.norm_eps))
+
+
 def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
                 frontend=None, positions=None):
     """One layer.  x: (B, S, d).  Returns (x, aux_loss)."""
     check_ported(seg.kind, seg.ffn)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    x = x + _attend(p["attn"], h, cfg, ctx, window=seg.window,
+    a = y = None
+    if seg.kind in ("attn", "hybrid"):
+        a = _attend(p["attn"], h, cfg, ctx, window=seg.window,
                     positions=positions)
+    if seg.kind in ("ssm", "hybrid"):
+        y = ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
+    x = add_mixer(p, x, seg.kind, a, y, cfg)
     if seg.ffn != "none":
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         x = x + _apply_ffn(p, h2, seg)

@@ -239,6 +239,10 @@ class ValetServeEngine:
             if "ring" in bc:
                 bc["ring"].k[slot].copy_(oc["ring"].k[0])
                 bc["ring"].v[slot].copy_(oc["ring"].v[0])
+            if "ssm" in bc:
+                # copy_ casts the prefill's conv ring to the batch dtype
+                bc["ssm"]["h"][slot].copy_(oc["ssm"]["h"][0])
+                bc["ssm"]["conv"][slot].copy_(oc["ssm"]["conv"][0])
         self.caches["lengths"][slot] = s
         return logits
 
@@ -554,9 +558,9 @@ class ValetServeEngine:
         if not self._restore(req):
             return False
         req.slot = self._slots_free.pop()
-        # ring caches hold this slot's data only while the sequence keeps
-        # its batch slot; after a pause it re-owns a slot, so the per-slot
-        # state round-trips through a host blob keyed by rid
+        # ring and SSM caches hold this slot's data only while the sequence
+        # keeps its batch slot; after a pause it re-owns a slot, so the
+        # per-slot state round-trips through a host blob keyed by rid
         blob = self._seq_blobs.pop(req.rid, None)
         if blob is not None:
             self._write_seq_blob(req.slot, blob)
@@ -564,17 +568,22 @@ class ValetServeEngine:
         req.last_active_step = self.step_counter
         return True
 
-    # per-sequence (non-paged) cache spill helpers
+    # per-sequence (non-paged) cache spill helpers: the ring of every
+    # sliding-window layer and the SSD state + conv ring of every SSM layer,
+    # all to the host tier behind one synchronisation
     def _read_seq_blob(self, slot: int):
         keys, xs = [], []
         for li, c in enumerate(self.caches["layers"]):
             if "ring" in c:
-                keys.append(li)
+                keys.append((li, "ring"))
                 xs += [c["ring"].k[slot], c["ring"].v[slot]]
+            if "ssm" in c:
+                keys.append((li, "ssm"))
+                xs += [c["ssm"]["h"][slot], c["ssm"]["conv"][slot]]
         hs = dev.to_host_tier_many(xs)
         out = [{} for _ in self.caches["layers"]]
-        for i, li in enumerate(keys):
-            out[li]["ring"] = (hs[2 * i], hs[2 * i + 1])
+        for i, (li, key) in enumerate(keys):
+            out[li][key] = (hs[2 * i], hs[2 * i + 1])
         out.append(int(self.caches["lengths"][slot]))
         return out
 
@@ -585,6 +594,11 @@ class ValetServeEngine:
                 ring = c["ring"]
                 ring.k[slot].copy_(dev.from_host_tier(e["ring"][0], ring.k))
                 ring.v[slot].copy_(dev.from_host_tier(e["ring"][1], ring.v))
+            if "ssm" in e:
+                st = c["ssm"]
+                st["h"][slot].copy_(dev.from_host_tier(e["ssm"][0], st["h"]))
+                st["conv"][slot].copy_(dev.from_host_tier(e["ssm"][1],
+                                                          st["conv"]))
         self.caches["lengths"][slot] = length
 
     def _block_table_row(self, req: Request) -> np.ndarray:
@@ -700,7 +714,7 @@ class ValetServeEngine:
     def _preempt(self, req: Request) -> int:
         """Pause a sequence: demote (zero-restore), spill (legacy valet /
         os-swap) or delete (infiniswap) its pool pages + save its per-slot
-        (ring) caches."""
+        (ring, SSM) caches."""
         n = len(req.pages)
         self.stats.pauses += 1
         if req.slot >= 0:

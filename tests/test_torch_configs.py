@@ -20,6 +20,9 @@ from repro_torch.models import transformer as T  # noqa: E402
 
 NAMES = sorted(ref_configs.ARCHS)
 DENSE = ["granite-3-8b", "gemma3-4b", "phi3-mini-3.8b", "h2o-danube-3-4b"]
+SSM = ["mamba2-2.7b", "hymba-1.5b"]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
 @pytest.fixture(scope="module")
@@ -91,10 +94,64 @@ def test_init_params_has_the_reference_tree(ref_params, name):
     assert abs(float(wo.std()) - 0.02 / np.sqrt(2 * cfg.n_layers)) < 0.003
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-2.7b",
-                                  "hymba-1.5b", "llama-3.2-vision-11b",
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "llama-3.2-vision-11b",
                                   "whisper-large-v3"])
 def test_unported_kinds_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(configs.reduced(configs.ARCHS[name]),
                       generator=torch.Generator(), device="cpu")
+
+
+def shapes_and_dtypes(tree, torch_tree=False):
+    if torch_tree:
+        return bridge.tree_map(lambda t: (tuple(t.shape),
+                                          str(t.dtype).replace("torch.", "")),
+                               tree)
+    return jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), tree)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", SSM)
+def test_init_params_ssm_tree_matches_reference(name, dtype):
+    """The ``ssm`` (and hymba's ``attn_norm``/``ssm_norm``) subtrees: shapes
+    and dtypes as the reference's in f32 and bf16, with ``A_log``, ``D`` and
+    ``dt_bias`` float32 and equal to the reference's fixed values."""
+    jdt, tdt = DTYPES[dtype]
+    cfg = ref_configs.reduced(ref_configs.ARCHS[name])
+    ref = jax.tree.map(np.asarray, ref_T.init_params(jax.random.PRNGKey(0),
+                                                     cfg, dtype=jdt))
+    tp = T.init_params(configs.reduced(configs.ARCHS[name]),
+                       generator=torch.Generator().manual_seed(0),
+                       dtype=tdt, device="cpu")
+    assert shapes_and_dtypes(tp, torch_tree=True) == shapes_and_dtypes(ref)
+    for seg, tseg in zip(ref["segments"], tp["segments"]):
+        for key in ("A_log", "D", "dt_bias"):
+            assert tseg["ssm"][key].dtype == torch.float32
+            np.testing.assert_allclose(tseg["ssm"][key].numpy(),
+                                       seg["ssm"][key], rtol=1e-6, atol=0)
+        assert not tseg["ssm"]["conv_b"].any()
+        conv = tseg["ssm"]["conv_x"].float()
+        assert abs(float(conv.std()) - 0.5) < 0.1
+
+
+@pytest.mark.parametrize("name", SSM + ["llama-3.2-vision-11b"])
+def test_bridge_cast_keeps_the_reference_f32_leaves(ref_params, name):
+    """Bridging a tree with ``dtype=bfloat16`` casts the weights and leaves
+    the leaves the reference always holds in f32 (``A_log``, ``D``,
+    ``dt_bias``, ``xgate``) as they are, bit for bit."""
+    params = ref_params[name]
+    tp = bridge.to_torch(params, device="cpu", dtype=torch.bfloat16)
+    flat_ref = jax.tree_util.tree_flatten_with_path(params)[0]
+    flat = dict(jax.tree_util.tree_flatten_with_path(
+        bridge.tree_map(lambda t: t, tp))[0])
+    kept = 0
+    for path, a in flat_ref:
+        t = flat[path]
+        last = path[-1].key if hasattr(path[-1], "key") else None
+        if last in bridge.F32_LEAVES:
+            assert t.dtype == torch.float32, path
+            np.testing.assert_array_equal(t.numpy(), a)
+            kept += 1
+        else:
+            assert t.dtype == torch.bfloat16, path
+    assert kept > 0

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -77,3 +78,29 @@ def test_cuda_paged_kernel_matches_plain(cuda, q_dtype, kv_dtype, b, hq, hkv,
     want = pa.paged_attention_plain(*args)
     tol = 1e-4 if "bfloat16" not in (q_dtype, kv_dtype) else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 64, 2, 8, 1, 16, 16), (2, 64, 4, 16, 2, 8, 32),
+    (1, 128, 8, 8, 2, 4, 16), (1, 36, 4, 16, 2, 8, 12),
+    (1, 77, 4, 64, 1, 128, 77),          # one ragged chunk, mamba2's P and N
+    (2, 512, 6, 64, 2, 16, 256),         # hymba's N, two full chunks
+    (1, 130, 3, 128, 1, 128, 65)])       # the largest P and N the kernel takes
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rand(0, (b, s, h, p))).to(cuda, TORCH[dtype])
+    dt = torch.from_numpy(np.logaddexp(rand(1, (b, s, h)) - 2, 0)
+                          .astype(np.float32)).to(cuda)
+    A = torch.from_numpy(-np.exp(rng.standard_normal(h)).astype(np.float32)
+                         ).to(cuda)
+    Bm = torch.from_numpy(rand(2, (b, s, g, n))).to(cuda, TORCH[dtype])
+    Cm = torch.from_numpy(rand(3, (b, s, g, n))).to(cuda, TORCH[dtype])
+    launches = ssd.ssd_scan.launches
+    y, hT = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    assert ssd.ssd_scan.launches == launches + 1
+    y_want, h_want = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    tol = 3e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y, y_want, atol=tol, rtol=tol)
+    torch.testing.assert_close(hT, h_want, atol=tol, rtol=tol)

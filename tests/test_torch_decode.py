@@ -1,7 +1,8 @@
 """Decode path of the port: its incremental decode matches its own forward
 at every position (the ``test_decode.py`` invariant), its prefill and
-decode logits match the JAX reference within 1e-4 (f32), and inactive
-batch slots neither append nor advance."""
+decode logits match the JAX reference within 1e-4 (f32) for the dense,
+sliding-window, SSM (mamba2) and hybrid (hymba) archs, and inactive batch
+slots neither append nor advance."""
 import numpy as np
 import pytest
 
@@ -20,7 +21,7 @@ from repro_torch.core import device_ops as dev  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
-NAMES = ["granite-3-8b", "gemma3-4b"]
+NAMES = ["granite-3-8b", "gemma3-4b", "mamba2-2.7b", "hymba-1.5b"]
 REF_CTX = ref_T.ParallelCtx(remat=False, q_block=8, kv_block=8, loss_chunk=8)
 # the reference path, compiled once per shape (eager JAX is slow on CPU)
 ref_prefill = jax.jit(ref_D.prefill, static_argnums=(2, 3))
@@ -45,9 +46,10 @@ def clone_caches(caches):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_incremental_decode_matches_forward_and_reference(models, name):
-    """Prefill 20 tokens (past gemma3's reduced 16-token window, so the ring
-    wraps), then decode: every step matches the port's full forward and the
-    JAX decode path."""
+    """Prefill 20 tokens (past the reduced 16-token window of gemma3 and
+    hymba, so the ring wraps; not a multiple of the SSM's 8-step chunk, so
+    the scan pads), then decode: every step matches the port's full forward
+    and the JAX decode path."""
     cfg, params, tcfg, tparams = models[name]
     B, S_prompt, n_dec, page = 2, 20, 6, 4
     S_total = S_prompt + n_dec
@@ -88,9 +90,14 @@ def test_incremental_decode_matches_forward_and_reference(models, name):
                                    np.asarray(ref_logits)[:, :v], atol=1e-4,
                                    rtol=1e-4, err_msg=f"position {t}")
     for li, (c, rc) in enumerate(zip(caches["layers"], ref_caches["layers"])):
+        assert sorted(c) == sorted(rc)
         for key in c:
-            np.testing.assert_allclose(c[key].k.numpy(), np.asarray(rc[key].k),
-                                       atol=1e-5, err_msg=f"layer {li} {key}")
+            pairs = ([(c[key][f], rc[key][f]) for f in ("h", "conv")]
+                     if key == "ssm" else [(c[key].k, rc[key].k),
+                                           (c[key].v, rc[key].v)])
+            for got, want in pairs:
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           atol=1e-5, err_msg=f"layer {li} {key}")
     np.testing.assert_array_equal(caches["lengths"].numpy(),
                                   np.asarray(ref_caches["lengths"]))
 
