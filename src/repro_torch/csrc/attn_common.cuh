@@ -1,7 +1,8 @@
-// Shared device helpers for the attention kernels (paged_attention.cu,
-// flash_attention.cu): 16-byte loads into f32 shared-memory rows, output
-// conversion, warp reductions; and, for every kernel (ssd_scan.cu too), the
-// dtype codes of the C interface and the dynamic shared-memory opt-in.
+// Shared device helpers for the CUDA-core attention kernels
+// (paged_attention.cu, flash_attention.cu): 16-byte loads into f32
+// shared-memory rows, output conversion, warp reductions; and, for every
+// kernel, the masking sentinel, the dtype codes of the C interface, the
+// 16-byte vector width per type and the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,4 +1,5 @@
-// Flash (prefill) attention forward for Hopper (sm_90a).
+// Flash (prefill) attention forward for Hopper (sm_90a): the C entry point
+// and the f32 CUDA-core kernel.
 //
 // Replaces the Pallas kernel `flash_attention` / `_flash_kernel` in
 // src/repro/kernels/flash_attention.py: causal and/or sliding-window
@@ -8,12 +9,19 @@
 // stored, keys at or beyond Sk are masked (engine prefill runs one prompt at
 // its exact length, e.g. 77 tokens).
 //
+// Two routes, chosen by dtype in `valet_flash_attention` below, neither
+// falling back to the other:
+//  * bf16 q with bf16 k/v (every prefill of the main paths) runs on the
+//    tensor cores: flash_attention_tc.cu (mma.sync, cp.async ring).
+//  * every other pair (f32/f32, f32 q over bf16 k/v, bf16 q over f32 k/v)
+//    runs the f32 kernel of this file, which keeps f32 parity tight.
+//
 // What bounds it on this card: operations.  Each K/V tile is reused by a
 // whole tile of query rows, so at prompt lengths of a few hundred tokens
-// the multiply-adds outweigh the bytes; this first version runs them on the
-// f32 CUDA cores (no mma.sync / wgmma yet), far below the tensor-core peak.
+// the multiply-adds outweigh the bytes; the f32 kernel runs them on the f32
+// CUDA cores (67 TFLOP/s peak), far below the tensor cores.
 //
-// What the design does about it:
+// What the f32 kernel does:
 //  * One block per (q head, tile of BQ = 4 * RQ query rows).  The block walks
 //    KV tiles of 32 keys from the window band's start to the causal end, so
 //    fully masked tiles are never loaded; the diagonal and band edges are
@@ -145,6 +153,11 @@ flash_fwd_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   }
 }
 
+// flash_attention_tc.cu: the tensor-core route for bf16 q/k/v
+cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* out,
+                            int BH, int Sq, int Sk, int D, int group, int causal,
+                            int window, float scale, cudaStream_t stream);
+
 template <typename QT, typename KT, int RQ>
 cudaError_t launch_flash_rq(const void* q, const void* k, const void* v, void* out,
                             int BH, int Sq, int Sk, int D, int group, int causal,
@@ -175,7 +188,9 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* out,
 }  // namespace valet
 
 // C interface (bound with ctypes).  q/out: (BH, Sq, D) contiguous; k/v:
-// (BKV, Sk, D) contiguous with BH = BKV * group.  Returns the cudaError_t.
+// (BKV, Sk, D) contiguous with BH = BKV * group.  bf16/bf16 runs on the
+// tensor cores, every other dtype pair on the f32 kernel.  Returns the
+// cudaError_t.
 extern "C" int valet_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int BH, int Sq, int Sk, int D,
                                      int group, int causal, int window, int q_dtype,
@@ -192,7 +207,6 @@ extern "C" int valet_flash_attention(const void* q, const void* k, const void* v
     return launch_flash<__nv_bfloat16, float>(q, k, v, out, BH, Sq, Sk, D, group,
                                               causal, window, scale, s);
   if (q_dtype == kBF16 && kv_dtype == kBF16)
-    return launch_flash<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, BH, Sq, Sk, D,
-                                                      group, causal, window, scale, s);
+    return launch_flash_tc(q, k, v, out, BH, Sq, Sk, D, group, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -101,7 +101,8 @@ def load() -> ctypes.CDLL:
     lib.valet_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
                                           f, p]
     lib.valet_flash_attention.restype = i
-    lib.valet_ssd_scan.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.valet_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   i, p]
     lib.valet_ssd_scan.restype = i
     _lib = lib
     return lib

@@ -10,8 +10,12 @@ Ragged lengths are fine (no multiple-of-the-tile requirement).
 ``flash_attention`` checks its inputs against what the kernel takes, then
 dispatches by device: a CPU tensor takes the plain
 PyTorch version ``flash_attention_plain``; a CUDA tensor launches the
-hand-written kernel (``csrc/flash_attention.cu``) or raises on what the
-kernel does not take.  ``flash_attention.launches`` counts kernel launches.
+hand-written kernel or raises on what the kernel does not take.  The route
+on the card is chosen by dtype: bf16 q with bf16 k/v runs on the tensor
+cores (``csrc/flash_attention_tc.cu``); every other pair (f32/f32, and
+either side f32 with the other bf16) runs the f32 CUDA-core kernel
+(``csrc/flash_attention.cu``).  Neither falls back to the other: a failed
+launch raises.  ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 

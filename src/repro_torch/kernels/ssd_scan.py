@@ -18,9 +18,13 @@ gate: the caller (``repro_torch.models.ssm``) applies them.
 
 ``ssd_scan`` checks its inputs against what the kernel takes, then
 dispatches by device: a CPU tensor takes the plain PyTorch version
-``ssd_scan_plain``; a CUDA tensor launches the hand-written kernel
-(``csrc/ssd_scan.cu``) or raises on what the kernel does not take.
-``ssd_scan.launches`` counts kernel launches.
+``ssd_scan_plain``; a CUDA tensor runs the hand-written kernel
+(``csrc/ssd_scan.cu``) or raises on what the kernel does not take.  On the
+card one call runs five passes (the in-chunk decay lc, C.B^T per group,
+chunk states, state passing, chunk outputs) over scratch buffers that the
+wrapper allocates; with bf16 x/B/C their products run on the tensor cores,
+with f32 inputs as f32 FMAs.  ``ssd_scan.launches`` counts wrapper calls
+that ran the kernel (one per scan, not one per pass).
 """
 from __future__ import annotations
 
@@ -79,12 +83,20 @@ def ssd_scan(x, dt, A, B_mat, C_mat, chunk):
         return ssd_scan_plain(x, dt, A, B_mat, C_mat, chunk)
     b, s, h, p = x.shape
     g, n = B_mat.shape[2], B_mat.shape[3]
-    y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
-    h_final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    nc = s // chunk
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((b, s, h, p), **f32)
+    h_final = torch.empty((b, h, p, n), **f32)
+    # scratch of the passes: C.B^T per (batch, chunk, group), the in-chunk
+    # decay lc, and each chunk's state (rewritten as its h_prev)
+    cb = torch.empty((b, nc, g, chunk, chunk), **f32)
+    lc = torch.empty((b, nc, h, chunk), **f32)
+    states = torch.empty((b, nc, h, p, n), **f32)
     lib = cuda_lib.load()
     err = lib.valet_ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
-        C_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+        C_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(), cb.data_ptr(),
+        lc.data_ptr(), states.data_ptr(),
         b, s, h, p, g, n, chunk, cuda_lib.dtype_code(x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(err, "ssd_scan")

@@ -104,3 +104,59 @@ def test_cuda_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype):
     tol = 3e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(y, y_want, atol=tol, rtol=tol)
     torch.testing.assert_close(hT, h_want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 256])
+@pytest.mark.parametrize("s,window", [(1, 0), (1100, 1024)])
+def test_cuda_flash_tensor_core_route_matches_plain(cuda, d, s, window):
+    """bf16 q/k/v (the tensor-core route) with a group of 5 query heads per
+    KV head, as hymba's 25/5."""
+    q = torch.from_numpy(rand(0, (10, s, d))).to(cuda, torch.bfloat16)
+    k = torch.from_numpy(rand(1, (2, s, d))).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(rand(2, (2, s, d))).to(cuda, torch.bfloat16)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 1024, 4, 64, 1, 128, 256),       # mamba2: N 128, four chunks
+    (1, 1536, 5, 64, 1, 16, 256),        # hymba: N 16, six chunks
+    (1, 512, 3, 96, 1, 64, 256),         # P 96: the bf16 route's 6-tile variant
+    (1, 512, 2, 128, 1, 128, 256)])      # P 128: its 8-tile variant
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_kernel_multi_chunk_matches_plain(cuda, b, s, h, p, g, n, chunk,
+                                                   dtype):
+    test_cuda_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_are_bitwise_repeatable(cuda, dtype):
+    """Two calls on the same inputs give the same bits (no atomics, no
+    order that depends on scheduling)."""
+    td = TORCH[dtype]
+    q = torch.from_numpy(rand(0, (10, 300, 64))).to(cuda, td)
+    k = torch.from_numpy(rand(1, (2, 300, 64))).to(cuda, td)
+    v = torch.from_numpy(rand(2, (2, 300, 64))).to(cuda, td)
+    first = fa.flash_attention(q, k, v, causal=True, window=128)
+    assert torch.equal(first, fa.flash_attention(q, k, v, causal=True, window=128))
+
+    rng = np.random.default_rng(0)
+    b, s, h, p, g, n = 1, 512, 4, 64, 2, 128
+    x = torch.from_numpy(rand(3, (b, s, h, p))).to(cuda, td)
+    dt = torch.from_numpy(np.logaddexp(rand(4, (b, s, h)) - 2, 0)
+                          .astype(np.float32)).to(cuda)
+    A = torch.from_numpy(-np.exp(rng.standard_normal(h)).astype(np.float32)
+                         ).to(cuda)
+    Bm = torch.from_numpy(rand(5, (b, s, g, n))).to(cuda, td)
+    Cm = torch.from_numpy(rand(6, (b, s, g, n))).to(cuda, td)
+    y1, h1 = ssd.ssd_scan(x, dt, A, Bm, Cm, 256)
+    y2, h2 = ssd.ssd_scan(x, dt, A, Bm, Cm, 256)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+    args = [torch.from_numpy(a).to(cuda) for a in paged_inputs(2, 8, 4, 64, 16, 8)]
+    args[0], args[1], args[2] = (args[0].to(td), args[1].to(td), args[2].to(td))
+    assert torch.equal(pa.paged_attention(*args), pa.paged_attention(*args))
