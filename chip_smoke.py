@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card:
 It builds the hand-written kernels from ``src/repro_torch/csrc`` and
 counts the tensor-core instructions in each kernel's SASS (phase 1), holds
 each kernel against its plain PyTorch version on the card and checks that
-two calls give the same bits (phase 2), checks
+two calls give the same bits and that a row of the paged kernel keeps its
+bits when the other rows of its batch change (phase 2), checks
 the port's CUDA path against its CPU path on reduced configs (phase 3), then
 drives the main paths through ``ValetServeEngine`` with and without
 KV-pool pressure: full-width granite-3-8b (20 of 40 layers, every policy;
@@ -201,12 +202,15 @@ def assert_close(name, out, ref, dtype):
 # Phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed):
-    from repro_torch.kernels import paged_attention as pa
+def paged_inputs(b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, min_len=1,
+                 n_pages=None):
+    """Rows of min_len..max_len tokens (row 0 the longest) over tables of
+    ``n_pages`` pages (the lengths' pages and 2 more by default) in a
+    shuffled pool; row 1 has a -1 hole at its second page."""
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, max_len + 1, size=b).astype(np.int32)
+    lengths = rng.integers(min_len, max_len + 1, size=b).astype(np.int32)
     lengths[0] = max_len
-    p = -(-max_len // page) + 2                       # room for -1 pads
+    p = n_pages or -(-max_len // page) + 2            # room for -1 pads
     n_slots = b * p + 8
     bt = np.full((b, p), -1, np.int32)
     perm = rng.permutation(n_slots)
@@ -222,8 +226,15 @@ def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed):
     q = torch.randn((b, hq, d), device=dev, generator=g).to(q_dtype)
     kp = torch.randn((n_slots, page, hkv, d), device=dev, generator=g).to(kv_dtype)
     vp = torch.randn((n_slots, page, hkv, d), device=dev, generator=g).to(kv_dtype)
-    btt = torch.from_numpy(bt).to(dev)
-    lt = torch.from_numpy(lengths).to(dev)
+    return q, kp, vp, torch.from_numpy(bt).to(dev), torch.from_numpy(lengths).to(dev)
+
+
+def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, **rows):
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, btt, lt = paged_inputs(b, hq, hkv, d, page, max_len, q_dtype, kv_dtype,
+                                      seed, **rows)
+    bt, lengths, p = btt.cpu().numpy(), lt.cpu().numpy(), btt.shape[1]
+    dev = "cuda"
     out = pa.paged_attention(q, kp, vp, btt, lt)
     ref = pa.paged_attention_plain(q, kp, vp, btt, lt)
     torch.cuda.synchronize()
@@ -242,10 +253,37 @@ def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed):
     plain_fn = lambda: pa.paged_attention_plain(q, kp, vp, btt, lt)  # noqa: E731
     times = timings(kernel_fn, plain_fn, None, flush=flush_buf.zero_)
     bms, by = bound_ms(n_bytes, n_ops, kv_dtype)
-    rec = dict(max_abs_err=max_err(out, ref), bound_ms=bms, bound_by=by, **times)
-    log(f"  {name}: err {rec['max_abs_err']:.3e}  {times_text(times)}  bound "
-        f"{bms:.4f} ms ({by})")
+    n_splits = pa.plan_for(q, kp, btt)[1]
+    rec = dict(max_abs_err=max_err(out, ref), bound_ms=bms, bound_by=by,
+               n_splits=n_splits, **times)
+    log(f"  {name}: {n_splits} splits  err {rec['max_abs_err']:.3e}  "
+        f"{times_text(times)}  bound {bms:.4f} ms ({by}; "
+        f"{100 * bms / times['device_ms']:.1f}% of the device time)")
     return rec
+
+
+def paged_batch_independence(q_dtype, kv_dtype, trials=3):
+    """Row 0's output must keep its bits when the other rows' tables and
+    lengths change (granite's decode shape): the exactness checks of the main
+    paths compare runs whose batches differ."""
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, btt, lt = paged_inputs(8, 32, 8, 128, 16, 600, q_dtype, kv_dtype, seed=11)
+    first = pa.paged_attention(q, kp, vp, btt, lt)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for trial in range(trials):
+        bt2, lt2 = btt.clone(), lt.clone()
+        bt2[1:] = torch.randint(-1, kp.shape[0], bt2[1:].shape, device="cuda", generator=g,
+                                dtype=torch.int32)
+        lt2[1:] = torch.randint(0, 641, lt2[1:].shape, device="cuda", generator=g,
+                                dtype=torch.int32)
+        again = pa.paged_attention(q, kp, vp, bt2, lt2)
+        if not torch.equal(first[0], again[0]):
+            fail(f"paged batch independence: row 0 changed (max abs diff "
+                 f"{max_err(first[0], again[0]):.3e}) when the other rows changed "
+                 f"(trial {trial})")
+    log(f"  paged batch independence (q {str(q_dtype)[6:]}, pool {str(kv_dtype)[6:]}): "
+        f"row 0 bit-identical over {trials} changes of the other rows' tables and "
+        f"lengths")
 
 
 def band_mask(s, causal, window, dev):
@@ -386,6 +424,19 @@ def phase_kernels():
         recs[("paged", qd, kd)] = r
         paged_case(f"paged gemma3 B8 Hq8 Hkv4 D256 page16 len<=600 {tag}",
                    8, 8, 4, 256, 16, 600, qd, kd, seed=2)
+        paged_batch_independence(qd, kd)
+    # the global layers' decode on the gemma3 and hymba main paths (P =
+    # max_seq / page = 84) and one long row, bf16 q over an f32 pool as served
+    bf16, f32 = torch.bfloat16, torch.float32
+    recs[("paged", "gemma3-global")] = paged_case(
+        "paged gemma3-global B4 Hq8 Hkv4 D256 page16 len 1100-1316 P84 q bfloat16 pool "
+        "float32", 4, 8, 4, 256, 16, 1316, bf16, f32, seed=12, min_len=1100, n_pages=84)
+    recs[("paged", "hymba-global")] = paged_case(
+        "paged hymba-global B8 Hq25 Hkv5 D64 page16 len 1100-1332 P84 q bfloat16 pool "
+        "float32", 8, 25, 5, 64, 16, 1332, bf16, f32, seed=13, min_len=1100, n_pages=84)
+    recs[("paged", "long")] = paged_case(
+        "paged long B1 Hq32 Hkv8 D128 page16 len 16384 P1024 q bfloat16 pool float32",
+        1, 32, 8, 128, 16, 16384, bf16, f32, seed=14, n_pages=1024)
     # bf16 q/k/v (every prefill of the main paths) runs on the tensor cores;
     # f32 on the CUDA-core kernel
     for dt in (torch.float32, torch.bfloat16):
@@ -558,11 +609,14 @@ def profile_decode(name, cfg, params, ctx, prompts, *, steps=8, pool_slots=512,
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in ev)
+    paged_us = sum(e.self_device_time_total for e in ev if "valet::paged_" in e.key)
     log(f"  {name} decode profile (batch {geom['max_batch']}, {steps} steps): "
         f"{1e3 * wall / steps:.3f} ms wall per step, device busy "
         f"{busy_us / 1e3 / steps:.3f} ms per step "
         f"({100 * busy_us / 1e6 / wall:.1f}% of wall), "
-        f"{sum(e.count for e in ev) // steps} kernel launches per step")
+        f"{sum(e.count for e in ev) // steps} kernel launches per step; paged "
+        f"kernel (both passes) {paged_us / 1e3 / steps:.3f} ms per step "
+        f"({100 * paged_us / max(busy_us, 1):.1f}% of busy)")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count // steps:5d} calls/step  {e.key[:90]}")

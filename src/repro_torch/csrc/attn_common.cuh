@@ -1,8 +1,9 @@
-// Shared device helpers for the CUDA-core attention kernels
-// (paged_attention.cu, flash_attention.cu): 16-byte loads into f32
-// shared-memory rows, output conversion, warp reductions; and, for every
-// kernel, the masking sentinel, the dtype codes of the C interface, the
-// 16-byte vector width per type and the dynamic shared-memory opt-in.
+// Shared device helpers: for the f32 CUDA-core flash kernel
+// (flash_attention.cu), 16-byte loads into f32 shared-memory rows and row
+// dot products; for the CUDA-core kernels (that one and paged_attention.cu),
+// output conversion and warp reductions; and, for every kernel, the masking
+// sentinel, the dtype codes of the C interface, the 16-byte vector width per
+// type and the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -95,8 +95,8 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()[0]))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.valet_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                          i, i, f, p]
+    lib.valet_paged_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, i, i, i, f, p]
     lib.valet_paged_attention.restype = i
     lib.valet_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
                                           f, p]

@@ -18,7 +18,15 @@ Layout (the reference's):
 dispatches by device: a CPU tensor takes the plain
 PyTorch version ``paged_attention_plain``; a CUDA tensor launches the
 hand-written kernel (``csrc/paged_attention.cu``) or raises on what the
-kernel does not take.  ``paged_attention.launches`` counts kernel launches.
+kernel does not take.  ``paged_attention.launches`` counts kernel calls.
+
+The kernel splits each sequence into runs of tokens (flash-decoding): one
+block per (run, KV head, sequence) writes a partial softmax (m, l, acc) to
+a workspace the wrapper allocates, and a second pass combines the partials
+as ``combine_partials`` does.  ``split_plan`` picks the run from static
+shapes only -- never from the lengths -- so a row's output does not depend
+on the other rows of its batch (exactness under pressure compares runs
+whose batches differ) and the launch grid is set without reading the device.
 """
 from __future__ import annotations
 
@@ -49,14 +57,51 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, lengths):
     return combine_partials((m[None], l[None], acc[None]), q.dtype)
 
 
-def _chunk(page: int) -> int:
-    """Tokens the kernel stages per step: 64 (whole pages) or one page."""
-    if 64 % page == 0:
-        return 64
-    if page % 32 == 0 and page <= 256:
-        return page
-    raise ValueError(f"paged kernel takes a page that divides 64 or is a "
-                     f"multiple of 32 up to 256, not {page}")
+SMS = 132            # streaming multiprocessors of an H100
+BLOCKS_PER_SM = 2    # the plan's target: blocks per SM over the whole grid
+MIN_RUN = 64         # tokens per split: at least this ...
+MAX_RUN = 512        # ... and at most this (its per-token rows in shared memory)
+
+
+def tile_tokens(d: int, kv_dtype) -> int:
+    """Tokens the kernel stages per step: 64 when a token's row of K is at
+    most 256 bytes (so that a tile carries enough bytes), else 32."""
+    return 64 if d * torch.finfo(kv_dtype).bits // 8 <= 256 else 32
+
+
+def _check_page(page: int) -> None:
+    if not (64 % page == 0 or (page % 32 == 0 and page <= 256)):
+        raise ValueError(f"paged kernel takes a page that divides 64 or is a "
+                         f"multiple of 32 up to 256, not {page}")
+
+
+def split_plan(b: int, hkv: int, g: int, d: int, page: int, n_pages: int,
+               q_dtype, kv_dtype) -> tuple[int, int]:
+    """Tokens per split and number of splits of the kernel's first pass.
+
+    A function of static shapes only: the engine always passes B =
+    ``max_batch`` and P = ``max_seq / page``, so the plan, the launch grid and
+    every row's order of sums are the same whatever lengths the batch holds.
+    A run is whole pages and whole staged tiles (``tile_tokens``); runs are
+    sized so that the B * Hkv * splits blocks number about
+    ``BLOCKS_PER_SM`` per SM when every row is full.  (``g`` and the q dtype
+    do not change the plan today; they are part of what it may depend on.)
+    """
+    _check_page(page)
+    n_tok = n_pages * page
+    unit = math.lcm(tile_tokens(d, kv_dtype), page)
+    want = -(-BLOCKS_PER_SM * SMS // max(b * hkv, 1))     # splits per row
+    run = -(-max(-(-n_tok // want), MIN_RUN) // unit) * unit
+    run = max(min(run, MAX_RUN // unit * unit), unit)
+    return run, max(-(-n_tok // run), 1)
+
+
+def plan_for(q, k_pool, block_table) -> tuple[int, int]:
+    """``split_plan`` of a call's shapes and dtypes (never its lengths)."""
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pool.shape
+    return split_plan(b, hkv, hq // hkv, d, page, block_table.shape[1],
+                      q.dtype, k_pool.dtype)
 
 
 def _check(q, k_pool, v_pool, block_table, lengths):
@@ -82,7 +127,7 @@ def _check(q, k_pool, v_pool, block_table, lengths):
         raise TypeError("block_table and lengths must be int32")
     if block_table.shape[0] != b or tuple(lengths.shape) != (b,):
         raise ValueError("block_table/lengths batch does not match q")
-    _chunk(page)
+    _check_page(page)
     for t in (q, k_pool, v_pool):
         cuda_lib.dtype_code(t.dtype)
         if t.data_ptr() % 16:
@@ -100,13 +145,20 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths):
         return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
     b, hq, d = q.shape
     _, page, hkv, _ = k_pool.shape
-    chunk = _chunk(page)
+    run, n_splits = plan_for(q, k_pool, block_table)
     out = torch.empty_like(q)
+    # the first pass's partials (m, l) and acc, combined by the second pass;
+    # with one split the first pass writes ``out`` and they are not touched
+    f32 = dict(dtype=torch.float32, device=q.device)
+    ws_ml = torch.empty((n_splits, b, hq, 2) if n_splits > 1 else (0,), **f32)
+    ws_acc = torch.empty((n_splits, b, hq, d) if n_splits > 1 else (0,), **f32)
     lib = cuda_lib.load()
     err = lib.valet_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, hkv, hq // hkv, d, page, block_table.shape[1], chunk,
+        ws_ml.data_ptr(), ws_acc.data_ptr(),
+        b, hkv, hq // hkv, d, page, block_table.shape[1],
+        tile_tokens(d, k_pool.dtype), run, n_splits,
         cuda_lib.dtype_code(q.dtype), cuda_lib.dtype_code(k_pool.dtype),
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(err, "paged_attention")

@@ -36,6 +36,51 @@ def paged_inputs(b, hq, hkv, d, page, npages, seed=0):
             rand(seed + 2, (n_slots, page, hkv, d)), bt, lens)
 
 
+def paged_rows(b, hq, hkv, d, page, n_pages, lens, seed=0):
+    """Rows of the given lengths over tables of ``n_pages`` distinct slots;
+    every row longer than 40 pages has a -1 page at page 20."""
+    rng = np.random.default_rng(seed)
+    n_slots = b * n_pages + 4
+    bt = np.full((b, n_pages), -1, np.int32)
+    perm = rng.permutation(n_slots)
+    for i, n in enumerate(lens):
+        used = -(-int(n) // page)
+        bt[i, :used] = perm[i * n_pages:i * n_pages + used]
+        if used > 40:
+            bt[i, 20] = -1
+    return (rand(seed, (b, hq, d)), rand(seed + 1, (n_slots, page, hkv, d)),
+            rand(seed + 2, (n_slots, page, hkv, d)), bt, np.asarray(lens, np.int32))
+
+
+def on_card(arrays, cuda, q_dtype, kv_dtype):
+    q, kp, vp, bt, lens = arrays
+    return (torch.from_numpy(q).to(cuda, TORCH[q_dtype]),
+            torch.from_numpy(kp).to(cuda, TORCH[kv_dtype]),
+            torch.from_numpy(vp).to(cuda, TORCH[kv_dtype]),
+            torch.from_numpy(bt).to(cuda), torch.from_numpy(lens).to(cuda))
+
+
+PAIRS = [("float32", "float32"), ("float32", "bfloat16"),
+         ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+_LEN = np.random.default_rng(7)
+# (b, hq, hkv, d, page, n_pages, lengths): the split plan gives each case
+# the splits named beside it
+PAGED_SPLIT_CASES = {
+    "granite": (8, 32, 8, 128, 16, 36, _LEN.integers(1, 577, 8)),          # 5
+    "gemma3-global": (4, 8, 4, 256, 16, 84, _LEN.integers(1100, 1317, 4)),  # 14
+    "hymba-global": (8, 25, 5, 64, 16, 84, _LEN.integers(1100, 1333, 8)),   # 7
+    "long": (1, 32, 8, 128, 16, 1024, [16384]),                            # 32
+    "some-empty": (3, 8, 2, 64, 16, 128, [2048, 100, 0]),                   # 32
+    "single-split": (8, 32, 8, 128, 16, 4, [64, 1, 17, 48, 63, 30, 2, 33]),  # 1
+    "page8": (2, 16, 4, 128, 8, 200, [1600, 777]),                          # 25
+    "page32": (2, 16, 4, 128, 32, 50, [1600, 31]),                          # 25
+    # rows that are not whole 128-byte lines; 16 query heads per KV head
+    "g3-d120": (2, 6, 2, 120, 16, 10, [160, 75]),                           # 3
+    "g16-d128": (2, 32, 2, 128, 16, 20, [320, 129]),                        # 5
+    "g16-d256": (2, 32, 2, 256, 16, 20, [320, 129]),                        # 5
+}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -63,7 +108,8 @@ def test_cuda_flash_kernel_matches_plain(cuda, s, d, window, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "float32"),
                                               ("bfloat16", "float32"),
-                                              ("bfloat16", "bfloat16")])
+                                              ("bfloat16", "bfloat16"),
+                                              ("float32", "bfloat16")])
 @pytest.mark.parametrize("b,hq,hkv,d,page,npages", [
     (2, 4, 2, 64, 16, 4), (3, 8, 8, 32, 8, 6), (1, 8, 1, 128, 32, 3),
     (4, 32, 8, 128, 16, 40), (2, 8, 4, 256, 4, 20)])
@@ -78,6 +124,44 @@ def test_cuda_paged_kernel_matches_plain(cuda, q_dtype, kv_dtype, b, hq, hkv,
     want = pa.paged_attention_plain(*args)
     tol = 1e-4 if "bfloat16" not in (q_dtype, kv_dtype) else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAIRS)
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_cuda_paged_split_matches_plain(cuda, case, q_dtype, kv_dtype):
+    """The main paths' decode shapes, a long row, many splits of which some
+    are empty, a single split, pages of 8 and 32, in all four dtype pairs."""
+    b, hq, hkv, d, page, n_pages, lens = PAGED_SPLIT_CASES[case]
+    args = on_card(paged_rows(b, hq, hkv, d, page, n_pages, lens), cuda, q_dtype,
+                   kv_dtype)
+    n = pa.paged_attention.launches
+    got = pa.paged_attention(*args)
+    assert pa.paged_attention.launches == n + 1
+    want = pa.paged_attention_plain(*args)
+    tol = 1e-4 if "bfloat16" not in (q_dtype, kv_dtype) else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert got.dtype == TORCH[q_dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", PAIRS)
+def test_cuda_paged_rows_are_batch_independent(cuda, q_dtype, kv_dtype):
+    """A row's output keeps its bits when the other rows' tables and lengths
+    change: the split plan reads shapes only, and each row's sums run in an
+    order of their own."""
+    b, hq, hkv, d, page, n_pages = 8, 32, 8, 128, 16, 40
+    rng = np.random.default_rng(3)
+    q, kp, vp, bt, lens = paged_rows(b, hq, hkv, d, page, n_pages,
+                                     rng.integers(1, 641, b), seed=3)
+    first = pa.paged_attention(*on_card((q, kp, vp, bt, lens), cuda, q_dtype, kv_dtype))
+    for trial in range(3):
+        bt2, lens2 = bt.copy(), lens.copy()
+        lens2[1:] = rng.integers(0, 641, b - 1)
+        bt2[1:] = rng.integers(-1, kp.shape[0], (b - 1, n_pages))
+        again = pa.paged_attention(*on_card((q, kp, vp, bt2, lens2), cuda, q_dtype,
+                                            kv_dtype))
+        assert torch.equal(first[0], again[0]), trial
 
 
 @pytest.mark.cuda
@@ -160,3 +244,7 @@ def test_cuda_kernels_are_bitwise_repeatable(cuda, dtype):
     args = [torch.from_numpy(a).to(cuda) for a in paged_inputs(2, 8, 4, 64, 16, 8)]
     args[0], args[1], args[2] = (args[0].to(td), args[1].to(td), args[2].to(td))
     assert torch.equal(pa.paged_attention(*args), pa.paged_attention(*args))
+    # many splits and the second (combine) pass
+    for case in ("granite", "long", "some-empty"):
+        args = on_card(paged_rows(*PAGED_SPLIT_CASES[case]), cuda, dtype, dtype)
+        assert torch.equal(pa.paged_attention(*args), pa.paged_attention(*args)), case
