@@ -15,7 +15,10 @@ KV-pool pressure: full-width granite-3-8b (20 of 40 layers, every policy;
 phase 4), full-width gemma3-4b at 6 layers with prompts past its 1024-token
 window (phase 5), full-width hymba-1.5b (all 32 layers: paged, ring and SSD
 state together; phase 6) and full-width mamba2-2.7b (all 64 layers, SSD
-state only; phase 7).  Each main path runs with every kernel's launch count
+state only; phase 7), then serves granite-3-8b to three tenants that lease
+their KV pools from one ``HostMemoryCoordinator`` and donate idle slots to
+each other, checking each tenant's tokens against its solo run and the
+coordinator's books (phase 8).  Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -907,6 +910,209 @@ def phase_mamba2():
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# Phase 8: multi-tenant serving through one host memory coordinator
+# --------------------------------------------------------------------------
+
+# KV-pool pages.  Each tenant reserves TENANT_POOL slots on the card but
+# leases its effective pool from a slab of TENANT_SLAB pages, never below a
+# floor of TENANT_MIN (at least one 544-token request's 34 pages).  A pool
+# grows to at most half of what the coordinator says it could reach (the
+# free slab, its own lease and the co-tenants' lease above their floors), so
+# with two tenants a grower never asks for more than the free slab and no
+# page is ever reclaimed.  With three, a grower's ask passes the free slab
+# once the other two hold more than half the slab plus one floor: tenants b
+# and c get 6 prompts each (about 100 pages of demand, so they grow that
+# far) and finish before tenant a's 12.
+TENANT_SLAB = 260
+TENANT_POOL = 160
+TENANT_MIN = 40
+TENANT_PROMPTS = {"tenant-a": 12, "tenant-b": 6, "tenant-c": 6}
+TENANT_ROUNDS = 3000
+
+
+def tenant_prompts(cfg, counts, seed=0):
+    """Prompts of {128, 256, 512} tokens per tenant, drawn as phase 4 draws
+    its 12 (so tenant-a's are phase 4's)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, n in counts.items():
+        lens = rng.choice([128, 256, 512], size=n)
+        out[name] = [rng.integers(2, cfg.vocab, size=int(x)) for x in lens]
+    return out
+
+
+def serve_tenants(cfg, params, ctx, prompts, *, slab, weights=None):
+    """One engine per tenant on one ``HostMemoryCoordinator`` of ``slab``
+    pages, stepped round-robin until every one is done.  Each donation
+    (``_host_donate``, called by the coordinator inside a co-tenant's lease)
+    is timed between CUDA events, apart from the serving timing.  Returns
+    the coordinator, the engines, each tenant's tokens and step wall
+    seconds, the donation records and the round-robin's wall seconds."""
+    from repro_torch.core import HostMemoryCoordinator
+    from repro_torch.core.policies import POLICIES
+    from repro_torch.serve import ValetServeEngine
+    coord = HostMemoryCoordinator(slab)
+    engines = {}
+    for i, (name, ps) in enumerate(prompts.items()):
+        eng = ValetServeEngine(params, cfg, ctx, max_batch=8, max_seq=576, page=16,
+                               pool_slots=TENANT_POOL, min_pool=TENANT_MIN,
+                               policy=POLICIES["valet"], zero_restore=True,
+                               coordinator=coord, container_name=name,
+                               weight=weights[i] if weights else 1.0,
+                               device="cuda")
+        for p in ps:
+            eng.submit(p, max_new=32)
+        engines[name] = eng
+    donations = []
+
+    def timed(name, donate):
+        def call(n):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            got = donate(n)
+            e1.record()
+            donations.append((name, n, got, e0, e1))
+            return got
+        return call
+
+    for rec in coord.containers():
+        rec.donate_cb = timed(rec.name, rec.donate_cb)
+    wall = dict.fromkeys(engines, 0.0)
+    live, rounds = list(engines), 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while live:
+        rounds += 1
+        if rounds > TENANT_ROUNDS:
+            fail(f"multi-tenant serving did not finish in {TENANT_ROUNDS} rounds")
+        still = []
+        for name in live:
+            t1 = time.perf_counter()
+            if engines[name].step():
+                still.append(name)
+            wall[name] += time.perf_counter() - t1
+        live = still
+    for name, eng in engines.items():
+        t1 = time.perf_counter()
+        eng._flush_demoted(None)
+        wall[name] += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    outs = {}
+    for name, eng in engines.items():
+        reqs = sorted(eng._requests.values(), key=lambda r: r.rid)
+        if not all(r.status == "done" for r in reqs):
+            fail(f"{name}: requests left unfinished")
+        outs[name] = [r.tokens_out for r in reqs]
+    return coord, engines, outs, wall, donations, total
+
+
+def phase_tenants():
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.models import transformer as T
+    log("phase 8: multi-tenant serving, full-width granite-3-8b at 20 of 40 layers, "
+        "bf16, f32 KV pool: three valet zero-restore engines leasing KV pages "
+        "from one HostMemoryCoordinator, stepped round-robin")
+    cfg = replace(ARCHS["granite-3-8b"], n_layers=20)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.bfloat16)
+    prompts = tenant_prompts(cfg, TENANT_PROMPTS)
+    log(f"  slab {TENANT_SLAB} pages, {TENANT_POOL} slots reserved per tenant, "
+        f"floor {TENANT_MIN}; prompts per tenant "
+        f"{ {n: [len(p) for p in ps] for n, ps in prompts.items()} }")
+    torch.cuda.reset_peak_memory_stats()
+    problems = []
+    solo = {}
+    for name, ps in prompts.items():
+        outs, st, wall = run_engine(params, cfg, ctx, ps, policy="valet", pool_slots=512,
+                                    max_batch=8, max_seq=576, page=16, max_new=32,
+                                    device="cuda")
+        solo[name] = outs
+        n_tok = sum(len(o) for o in outs)
+        log(f"  {name} alone, no pressure (512 slots): {n_tok} tokens in {wall:.3f} s "
+            f"wall ({n_tok / wall:.2f} tok/s on this card); {stats_line(st)}")
+    coord, engines, outs, wall, donations, total = serve_tenants(
+        cfg, params, ctx, prompts, slab=TENANT_SLAB)
+    n_all = 0
+    for name, eng in engines.items():
+        n_tok = sum(len(o) for o in outs[name])
+        n_all += n_tok
+        log(f"  {name} coordinated: {n_tok} tokens in {wall[name]:.3f} s of its steps' "
+            f"wall ({n_tok / wall[name]:.2f} tok/s on this card); {stats_line(eng.stats)}")
+        if outs[name] != solo[name]:
+            diff = sum(a != b for a, b in zip(outs[name], solo[name]))
+            problems.append(f"{name}: tokens differ from its solo run in {diff} of "
+                            f"{len(outs[name])} requests")
+        else:
+            log(f"  {name}: tokens identical to its solo unpressured run")
+    log(f"  round-robin: {n_all} tokens in {total:.3f} s wall "
+        f"({n_all / total:.2f} tok/s on this card, all tenants)")
+    problems += tenant_books(coord, engines)
+    if not any(e.stats.pauses > 0 and e.stats.repointed_pages > 0
+               for e in engines.values()):
+        problems.append("no tenant was preempted and repointed")
+    torch.cuda.synchronize()
+    ms = [e0.elapsed_time(e1) for _, _, _, e0, e1 in donations]
+    log(f"  donation flushes: {len(donations)} calls, "
+        f"{sum(d[2] for d in donations)} pages shed, {sum(ms):.3f} ms between CUDA "
+        f"events in all (max {max(ms, default=0.0):.3f} ms); by donor "
+        f"{ {n: sum(d[2] for d in donations if d[0] == n) for n in engines} }")
+    if not donations or coord.stats.pages_reclaimed <= 0:
+        problems.append("no donation: CoordinatorStats.pages_reclaimed is 0")
+
+    # QoS weights: a light (1) and a heavy (3) tenant serve, then a third
+    # container registers and leases one floor more; the weighted-fair pass
+    # sheds the light tenant toward its smaller share first
+    light_heavy = {"light": prompts["tenant-b"], "heavy": prompts["tenant-c"]}
+    coord, engines, outs, wall, donations, total = serve_tenants(
+        cfg, params, ctx, light_heavy, slab=TENANT_SLAB, weights=(1.0, 3.0))
+    before = {r.name: r.leased for r in coord.containers()}
+    hog = coord.register(min_pages=TENANT_MIN, max_pages=TENANT_SLAB, name="hog")
+    hog.lease(TENANT_MIN)
+    recs = {r.name: r for r in coord.containers()}
+    log(f"  weights 1 / 3: leases {before} after serving, "
+        f"{ {n: recs[n].leased for n in before} } after a third container "
+        f"registered and leased {TENANT_MIN} pages more; fair shares "
+        f"{ {n: coord.fair_share(recs[n].cid) for n in before} }")
+    problems += tenant_books(coord, engines)
+    for name, src in (("light", "tenant-b"), ("heavy", "tenant-c")):
+        if outs[name] != solo[src]:
+            problems.append(f"weighted {name}: tokens differ from its solo run")
+    if not recs["light"].leased <= recs["heavy"].leased:
+        problems.append("weighted: the light tenant holds a larger lease than the heavy")
+    if not sum(before.values()) > recs["light"].leased + recs["heavy"].leased:
+        problems.append("weighted: no pages were reclaimed from the tenants")
+    log(f"  multi-tenant: torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        fail("multi-tenant: " + "; ".join(problems))
+
+
+def tenant_books(coord, engines):
+    """Print the coordinator's records and stats, check its invariants and
+    that every tenant's lease equals its pool's size; the problems found."""
+    for rec in coord.containers():
+        log(f"    {rec.name}: leased {rec.leased} (floor {rec.min_pages}, cap "
+            f"{rec.max_pages}, weight {rec.weight}), demand {rec.demand:.3f}, "
+            f"leases {rec.n_leases}, pages leased {rec.pages_leased_total}, "
+            f"donated {rec.pages_donated_total}")
+    log(f"    {coord.stats}")
+    problems = []
+    try:
+        coord.check_invariants()
+    except AssertionError as e:
+        problems.append(f"coordinator invariants: {e}")
+    for rec in coord.containers():
+        if rec.name in engines and rec.leased != engines[rec.name].pool.size:
+            problems.append(f"{rec.name}: leased {rec.leased} != pool size "
+                            f"{engines[rec.name].pool.size}")
+    return problems
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -922,7 +1128,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -961,7 +1167,7 @@ def main():
         phase_reduced()
         log(f"  phase 3: {time.perf_counter() - t0:.1f} s wall")
 
-    # phases 4-7 are the main paths.  Each runs with every launch count and
+    # phases 4-8 are the main paths.  Each runs with every launch count and
     # every count of plain-version calls on CUDA tensors set to 0 just
     # before it, and read just after; the profiles and checks a phase runs
     # beside its serving runs are off the path (``off_path``)
@@ -980,7 +1186,8 @@ def main():
     main_paths = [(4, "granite-3-8b", phase_granite, ("paged", "flash")),
                   (5, "gemma3-4b", phase_gemma, ("paged", "flash")),
                   (6, "hymba-1.5b", phase_hymba, ("paged", "flash", "ssd")),
-                  (7, "mamba2-2.7b", phase_mamba2, ("ssd",))]
+                  (7, "mamba2-2.7b", phase_mamba2, ("ssd",)),
+                  (8, "multi-tenant granite-3-8b", phase_tenants, ("paged", "flash"))]
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:
         if num not in phases:

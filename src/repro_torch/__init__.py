@@ -7,9 +7,20 @@ and runs its entry points on ``cuda`` unless the caller passes
 built at first use.
 
 * ``OrchestrationConfig`` — one frozen config object for every knob
+* ``TieredPageStore`` — the tiered (HBM/peer/host/cold) page store
 * ``ValetServeEngine`` — the paged-KV serving engine
+* ``HostMemoryCoordinator`` — §3.4 multi-container host memory sharing
+
+Construct stores/engines via ``.from_config(...)``.
 """
 from repro_torch.core.config import OrchestrationConfig
+from repro_torch.core.coordinator import HostMemoryCoordinator
+from repro_torch.core.tiering import TieredPageStore
 from repro_torch.serve.engine import ValetServeEngine
 
-__all__ = ["OrchestrationConfig", "ValetServeEngine"]
+__all__ = [
+    "OrchestrationConfig",
+    "TieredPageStore",
+    "ValetServeEngine",
+    "HostMemoryCoordinator",
+]

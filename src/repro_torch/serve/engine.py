@@ -119,10 +119,6 @@ class ValetServeEngine:
                  async_mode: bool = False,
                  zero_restore: bool = True, flush_batch: int = 64,
                  device="cuda"):
-        if coordinator is not None:
-            raise NotImplementedError(
-                "the host memory coordinator is not ported yet: ROADMAP "
-                "Queue 1 item 9 (trace-driven control plane)")
         if container_weight is not None:
             warnings.warn(
                 "ValetServeEngine(container_weight=...) is deprecated; use "
@@ -146,19 +142,36 @@ class ValetServeEngine:
                              if inf.uses_paged]
         self.caches = D.init_caches(cfg, max_batch, pool_slots=pool_slots,
                                     page=page, device=self.torch_device)
-        # per-container QoS weight (§3.4); read by the coordinator once the
-        # multi-tenant path is ported
+        # multi-tenant serving (§3.4): K engines register with one
+        # HostMemoryCoordinator, each leasing KV-pool pages on demand and
+        # donating FREE slots back when a co-located engine is under
+        # pressure.  The slot array (the device reservation) stays
+        # ``pool_slots``; the *effective* pool size is what gets coordinated.
+        self.coordinator = coordinator
+        self._lease = None
+        # per-container QoS weight (§3.4): a heavier engine claims a larger
+        # weighted-fair share of the slab surplus, so coordinator-driven
+        # reclamation sheds lighter co-tenants toward their (smaller) fair
+        # shares first.  ``weight=`` is the serve-API spelling;
+        # ``container_weight`` remains as a deprecated alias.
         if weight is not None:
             self.weight = weight
         elif container_weight is not None:
             self.weight = container_weight
         else:
             self.weight = 1.0
+        if coordinator is not None:
+            self._lease = coordinator.register(
+                min_pages=min_pool or pool_slots, max_pages=pool_slots,
+                weight=self.weight, name=container_name)
         self.pool = ValetMempool(
             pool_slots,
             min_pages=min_pool or pool_slots,
             max_pages=pool_slots,
-            lease=None)
+            lease=self._lease)
+        if coordinator is not None:
+            coordinator.set_donor(self._lease.cid, self._host_donate,
+                                  size_fn=lambda: self.pool.size)
         self.gpt = GlobalPageTable()
         self.tracker = ActivityTracker()
         # the KV page store's tiers: the device tier tracks demoted-but-
@@ -350,9 +363,30 @@ class ValetServeEngine:
         return pg
 
     def _reserve(self, n: int) -> bool:
-        """Secure ``n`` FREE pool slots: grow first, and only preempt
-        residents when growth is exhausted."""
+        """Secure ``n`` FREE pool slots: grow first (leasing from the
+        coordinator when attached — possibly pulling idle co-tenants'
+        memory), and only preempt residents when growth is exhausted."""
         return self.pool.ensure_free(n) or self._make_room(n)
+
+    def _host_donate(self, n_pages: int) -> int:
+        """Coordinator-requested donation: shed FREE slots back to the
+        shared slab (an idle engine's drained sequences are exactly the
+        unused memory §3.4 wants to hand to a busy co-tenant).  The shrink
+        unbacks FREE slots — exactly where demoted pages keep their bytes —
+        so every dirty demoted page is flushed to the host tier first.
+
+        The coordinator calls this in the middle of a co-tenant's lease,
+        i.e. inside the co-tenant's ``step()``.  The flush's device-to-host
+        copies are complete when it returns (``to_host_tier_many``
+        synchronises).  The shrink marks the shed slots UNBACKED, so the
+        device tier no longer validates them (``free_gen`` is None), and
+        re-backing them later bumps their generations: a restore of those
+        pages streams them from their host blobs and never repoints at a
+        slot whose bytes may have changed.  A blob is not written again
+        after the flush, and the pinned-memory allocator keeps a dropped
+        blob's memory until the stream's copy out of it has completed."""
+        self._flush_demoted(None)
+        return self.pool.shrink_by(n_pages)
 
     def _alloc_pages(self, req: Request, n: int) -> bool:
         """Allocate ``n`` logical pages backed by pool slots, in bulk."""
@@ -650,6 +684,9 @@ class ValetServeEngine:
 
     def _step_active(self, active: List[Request], greedy: bool):
         self.step_counter += 1
+        if self._lease is not None:
+            # demand signal: busy engines are reclaimed from last (§3.4)
+            self.coordinator.note_activity(self._lease.cid, len(active))
         # one device->host transfer for every sequence length this step
         lengths = self.caches["lengths"].cpu().numpy()
         # grow pages where the next token crosses a page boundary

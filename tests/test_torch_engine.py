@@ -89,8 +89,20 @@ def test_preempt_restore_roundtrips_kv_exactly(setup, mode):
         assert all(eng.gpt.local_slot(pg) == s for pg, s in slots.items())
 
 
-def test_coordinator_is_not_ported_yet(setup):
+def test_coordinator_registers_and_leases(setup):
+    """With a coordinator the engine registers its pool floor, leases its
+    pool through it and offers its FREE slots as a donor (the multi-tenant
+    runs are in ``test_torch_engine_coordinator.py``)."""
+    from repro_torch.core import HostMemoryCoordinator
     _, _, tcfg, tparams, _ = setup
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ValetServeEngine(tparams, tcfg, CTX, max_batch=2, max_seq=16,
-                         pool_slots=8, coordinator=object(), device="cpu")
+    coord = HostMemoryCoordinator(24)
+    eng = ValetServeEngine(tparams, tcfg, CTX, max_batch=2, max_seq=16,
+                           pool_slots=16, min_pool=4, coordinator=coord,
+                           container_name="solo", weight=2.0, device="cpu")
+    (rec,) = coord.containers()
+    assert (rec.name, rec.min_pages, rec.max_pages, rec.weight) == \
+        ("solo", 4, 16, 2.0)
+    assert rec.leased == eng.pool.size == 4
+    assert eng.pool.ensure_free(6) and rec.leased == eng.pool.size > 4
+    assert eng._host_donate(100) > 0 and rec.leased == eng.pool.size == 4
+    coord.check_invariants()
