@@ -18,7 +18,13 @@ state together; phase 6) and full-width mamba2-2.7b (all 64 layers, SSD
 state only; phase 7), then serves granite-3-8b to three tenants that lease
 their KV pools from one ``HostMemoryCoordinator`` and donate idle slots to
 each other, checking each tenant's tokens against its solo run and the
-coordinator's books (phase 8).  Each main path runs with every kernel's launch count
+coordinator's books (phase 8), serves full-width deepseek-moe-16b (12 of 28
+layers: 1 dense + 11 MoE) under pressure with every policy, after holding a
+MoE layer's decode rows bit-identical whatever the rest of the batch holds
+(phase 9), and runs full-width llama-3.2-vision-11b (10 of 40 layers, 6656
+patch tokens) and whisper-large-v3 (32 + 32 layers, 1536 frames) through
+prefill and decode, held against their full forward in f32, then in bf16
+(phase 10).  Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -32,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import shutil
 import subprocess
@@ -289,48 +296,52 @@ def paged_batch_independence(q_dtype, kv_dtype, trials=3):
         f"lengths")
 
 
-def band_mask(s, causal, window, dev):
-    """(s, s) boolean mask of the (query, key) pairs attention reads."""
+def band_mask(s, causal, window, dev, sk=None):
+    """(s, sk) boolean mask of the (query, key) pairs attention reads (sk
+    defaults to s)."""
     i = torch.arange(s, device=dev)
-    mask = torch.ones((s, s), dtype=torch.bool, device=dev)
+    j = torch.arange(s if sk is None else sk, device=dev)
+    mask = torch.ones((s, j.shape[0]), dtype=torch.bool, device=dev)
     if causal:
-        mask &= i[None, :] <= i[:, None]
+        mask &= j[None, :] <= i[:, None]
     if window > 0:
-        mask &= i[None, :] > i[:, None] - window
+        mask &= j[None, :] > i[:, None] - window
     return mask
 
 
-def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed):
+def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed, sk=None):
     """The flash kernel against its plain version and SDPA, q (hq, s, d) and
-    k/v (hkv, s, d): one prefill of one sequence, every head."""
+    k/v (hkv, sk, d) (sk defaults to s): one prefill of one sequence, every
+    head; a cross-attention or an encoder when not causal."""
     from repro_torch.kernels import flash_attention as fa
     dev = "cuda"
+    sk = s if sk is None else sk
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((hq, s, d), device=dev, generator=g).to(dtype)
-    k = torch.randn((hkv, s, d), device=dev, generator=g).to(dtype)
-    v = torch.randn((hkv, s, d), device=dev, generator=g).to(dtype)
+    k = torch.randn((hkv, sk, d), device=dev, generator=g).to(dtype)
+    v = torch.randn((hkv, sk, d), device=dev, generator=g).to(dtype)
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert_close(name, out, ref, dtype)
     assert_repeatable(name, [out], [fa.flash_attention(q, k, v, causal=causal,
                                                        window=window)])
-    mask = band_mask(s, causal, window, dev)
+    mask = band_mask(s, causal, window, dev, sk)
     pairs = int(mask.sum())
     el = torch.finfo(dtype).bits // 8
-    n_bytes = (2 * hq + 2 * hkv) * s * d * el
+    n_bytes = (2 * hq * s + 2 * hkv * sk) * d * el
     n_ops = 4 * pairs * hq * d
     # library yardstick: one SDPA call on the same inputs (KV heads expanded
-    # to the query heads beforehand; the mask as a boolean band)
+    # to the query heads beforehand; a window's mask as a boolean band)
     grp = hq // hkv
     q4 = q[None]
     k4 = k.repeat_interleave(grp, dim=0)[None]
     v4 = v.repeat_interleave(grp, dim=0)[None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if window > 0 or not causal:
+    if window > 0:
         lib_fn = lambda: sdpa(q4, k4, v4, attn_mask=mask)  # noqa: E731
     else:
-        lib_fn = lambda: sdpa(q4, k4, v4, is_causal=True)  # noqa: E731
+        lib_fn = lambda: sdpa(q4, k4, v4, is_causal=causal)  # noqa: E731
     times = timings(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
                     lambda: fa.flash_attention_plain(q, k, v, causal=causal,
                                                      window=window), lib_fn)
@@ -440,6 +451,16 @@ def phase_kernels():
     recs[("paged", "long")] = paged_case(
         "paged long B1 Hq32 Hkv8 D128 page16 len 16384 P1024 q bfloat16 pool float32",
         1, 32, 8, 128, 16, 16384, bf16, f32, seed=14, n_pages=1024)
+    # the decode of phases 9 and 10's paged layers: deepseek's and whisper's
+    # G = 1 (heads padded to 4 in the kernel), llama-vision's self layers
+    for qd in (f32, bf16):
+        tag = f"q {str(qd)[6:]} pool float32"
+        recs[("paged", "whisper", qd)] = paged_case(
+            f"paged whisper-dec B8 Hq20 Hkv20 D64 page16 len<=448 P28 {tag}",
+            8, 20, 20, 64, 16, 448, qd, f32, seed=15, n_pages=28)
+    recs[("paged", "deepseek")] = paged_case(
+        "paged deepseek B8 Hq16 Hkv16 D128 page16 len<=544 P36 q bfloat16 pool float32",
+        8, 16, 16, 128, 16, 544, bf16, f32, seed=16, n_pages=36)
     # bf16 q/k/v (every prefill of the main paths) runs on the tensor cores;
     # f32 on the CUDA-core kernel
     for dt in (torch.float32, torch.bfloat16):
@@ -456,6 +477,26 @@ def phase_kernels():
         if dt == torch.bfloat16:
             flash_case(f"flash hymba Hq25 Hkv5 D64 S1300 causal window1024 {tag}",
                        25, 5, 64, 1300, True, 1024, dt, seed=9)
+        # phase 10's non-causal launches: llama-vision's cross-attention over
+        # 6656 patch tokens, whisper's encoder over 1536 frames
+        recs[("flash", "cross", dt)] = flash_case(
+            f"flash llama-vision cross Hq32 Hkv8 D128 Sq256 Sk6656 non-causal {tag}",
+            32, 8, 128, 256, False, 0, dt, seed=10, sk=6656)
+        recs[("flash", "encoder", dt)] = flash_case(
+            f"flash whisper encoder Hq20 Hkv20 D64 S1536 non-causal {tag}",
+            20, 20, 64, 1536, False, 0, dt, seed=11)
+        # whisper's decoder prefill: cross-attention of the prompt (up to
+        # 256 tokens) over the 1536 encoder frames, and causal self-attention
+        recs[("flash", "dec-cross", dt)] = flash_case(
+            f"flash whisper dec cross Hq20 Hkv20 D64 Sq256 Sk1536 non-causal {tag}",
+            20, 20, 64, 256, False, 0, dt, seed=17, sk=1536)
+        recs[("flash", "dec-self", dt)] = flash_case(
+            f"flash whisper dec self Hq20 Hkv20 D64 S256 causal {tag}",
+            20, 20, 64, 256, True, 0, dt, seed=18)
+        # deepseek's causal prefill (G = 1), its longest prompt
+        recs[("flash", "deepseek", dt)] = flash_case(
+            f"flash deepseek Hq16 Hkv16 D128 S512 causal {tag}",
+            16, 16, 128, 512, True, 0, dt, seed=19)
     return recs
 
 
@@ -488,20 +529,39 @@ def run_engine(params, cfg, ctx, prompts, *, policy, pool_slots, max_batch, max_
     return outs, eng.stats, wall
 
 
+def open_gates(params, value=1.0):
+    """Set every cross-attention gate ``xgate`` (0 at init, which shuts
+    llama-vision's cross path) to ``value``, in place; True if any."""
+    segs = [seg for seg in params["segments"] if "xgate" in seg]
+    for seg in segs:
+        seg["xgate"].fill_(value)
+    return bool(segs)
+
+
+REDUCED = ("granite-3-8b", "gemma3-4b", "mamba2-2.7b", "hymba-1.5b", "deepseek-moe-16b",
+           "qwen2-moe-a2.7b", "llama-3.2-vision-11b", "whisper-large-v3")
+
+
 def phase_reduced():
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
-    log("phase 3: reduced configs, CUDA (kernels) against CPU (plain), f32")
+    log("phase 3: reduced configs, CUDA (kernels) against CPU (plain), f32; "
+        "llama-vision's xgate set to 1.0 so that its cross path counts")
     ctx = T.ParallelCtx(remat=False, q_block=8, kv_block=8, loss_chunk=8)
-    for name in ("granite-3-8b", "gemma3-4b", "mamba2-2.7b", "hymba-1.5b"):
+    for name in REDUCED:
         cfg = reduced(ARCHS[name])
         gen = torch.Generator().manual_seed(0)
         cpu = T.init_params(cfg, generator=gen, device="cpu")
+        open_gates(cpu)
         gpu = to_device(cpu, "cuda")
         rng = np.random.default_rng(0)
         b, s, n_dec, page = 2, 12, 6, 4
         toks = rng.integers(0, cfg.vocab, size=(b, s + n_dec))
+        fe = None
+        if cfg.n_frontend_tokens:
+            fe = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model),
+                             generator=torch.Generator().manual_seed(0))
         max_pages = (s + n_dec + page - 1) // page + 1
         bt = np.arange(b * max_pages, dtype=np.int32).reshape(b, max_pages)
         worst = 0.0
@@ -510,7 +570,8 @@ def phase_reduced():
             caches = D.init_caches(cfg, b, pool_slots=b * max_pages + 2, page=page,
                                    device=dev)
             lg, caches = D.prefill(params, torch.from_numpy(toks[:, :s]), cfg, ctx,
-                                   caches, torch.from_numpy(bt))
+                                   caches, torch.from_numpy(bt),
+                                   frontend=None if fe is None else fe.to(dev))
             seq = [lg.cpu()]
             for t in range(s, s + n_dec - 1):
                 lg, caches = D.decode_step(
@@ -523,6 +584,11 @@ def phase_reduced():
             worst = max(worst, max_err(a[:, :cfg.vocab], c[:, :cfg.vocab]))
         if worst > 1e-4:
             fail(f"{name} reduced: CUDA logits differ from CPU by {worst:.3e}")
+        if fe is not None:
+            # the engine prefills without a frontend, as the reference's
+            log(f"  {name} reduced: prefill+decode logits max |CUDA-CPU| {worst:.3e} "
+                f"(with a frontend; not served by the engine)")
+            continue
         rng = np.random.default_rng(0)
         prompts = [rng.integers(2, cfg.vocab, size=8) for _ in range(6)]
         for policy in ("valet", "valet-mass", "infiniswap", "os-swap"):
@@ -553,14 +619,16 @@ def stats_line(st):
 def serve_full(name, cfg, params, ctx, prompts, runs, **geom):
     """Serve ``prompts`` under each (label, policy, slots, zero, exact) run
     of ``runs``; the first run is the unpressured reference, and every
-    ``exact`` run's tokens must equal its tokens."""
+    ``exact`` run's tokens must equal its tokens.  Returns each run's wall
+    seconds by label."""
     torch.cuda.reset_peak_memory_stats()
-    ref, problems = None, []
+    ref, problems, walls = None, [], {}
     for label, policy, slots, zero, exact in runs:
         outs, st, wall = run_engine(params, cfg, ctx, prompts, policy=policy,
                                     pool_slots=slots, zero_restore=zero,
                                     device="cuda", **geom)
         n_tok = sum(len(o) for o in outs)
+        walls[label] = wall
         log(f"  {name} {label}: {n_tok} tokens in {wall:.3f} s wall "
             f"({n_tok / wall:.2f} tok/s on this card); {stats_line(st)}")
         if ref is None:
@@ -585,6 +653,19 @@ def serve_full(name, cfg, params, ctx, prompts, runs, **geom):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if problems:
         fail(f"{name}: " + "; ".join(problems))
+    return walls
+
+
+def restore_walls(name, walls):
+    """Zero-restore's and legacy restore's serving walls side by side, each
+    the mean of its runs (zero, legacy, ..., legacy, zero: ``abba_tail``)."""
+    zero = [w for label, w in walls.items() if label.startswith("valet zero")]
+    legacy = [w for label, w in walls.items() if label.startswith("valet legacy")]
+    z, lg = float(np.mean(zero)), float(np.mean(legacy))
+    log(f"  {name} restore walls, same call: valet zero-restore "
+        f"{' / '.join(f'{w:.3f}' for w in zero)} s (mean {z:.3f}), valet legacy "
+        f"{' / '.join(f'{w:.3f}' for w in legacy)} s (mean {lg:.3f}); zero-restore / "
+        f"legacy {z / lg:.3f}")
 
 
 def profile_decode(name, cfg, params, ctx, prompts, *, steps=8, pool_slots=512,
@@ -686,7 +767,7 @@ def sdpa_layout(q, k, v, *, causal=True, window=0):
     """SDPA in the flash kernel's layout (KV heads expanded, the mask as a
     boolean band): a measurement yardstick, never used by the port."""
     grp = q.shape[0] // k.shape[0]
-    mask = band_mask(q.shape[1], causal, window, q.device)
+    mask = band_mask(q.shape[1], causal, window, q.device, k.shape[1])
     return torch.nn.functional.scaled_dot_product_attention(
         q[None], k.repeat_interleave(grp, dim=0)[None],
         v.repeat_interleave(grp, dim=0)[None], attn_mask=mask)[0]
@@ -757,13 +838,14 @@ def phase_granite():
                     (f"os-swap {tag} ({pressured} slots)", "os-swap", pressured,
                      True, True),
                     (f"infiniswap {tag} ({pressured} slots)", "infiniswap",
-                     pressured, True, False)]
+                     pressured, True, False)] + abba_tail(pressured, tag)
         else:
             runs = [(f"{tag} no pressure (512 slots)", "valet", 512, True, True),
                     (f"infiniswap {tag} ({pressured} slots)", "infiniswap",
                      pressured, True, True)]
-        serve_full("granite-3-8b", cfg, params, ctx, prompts, runs, **geom)
+        walls = serve_full("granite-3-8b", cfg, params, ctx, prompts, runs, **geom)
         if dtype == torch.bfloat16:
+            restore_walls("granite-3-8b", walls)
             with off_path():
                 profile_decode("granite-3-8b", cfg, params, ctx, prompts, **geom)
                 prompt = rng.integers(2, cfg.vocab, size=512)
@@ -803,12 +885,22 @@ def exact_runs(slots, free):
     """Unpressured reference, then every policy at ``slots`` pages.  Repoint,
     stream and spill/restore move the bytes unchanged, so they must give the
     unpressured tokens exactly; infiniswap's bf16 re-prefill is reported."""
-    return [(f"no pressure ({free} slots)", "valet", free, True, True),
+    runs = [(f"no pressure ({free} slots)", "valet", free, True, True),
             (f"valet zero-restore ({slots} slots)", "valet", slots, True, True),
             (f"valet legacy ({slots} slots)", "valet", slots, False, True),
             (f"valet-mass ({slots} slots)", "valet-mass", slots, True, True),
             (f"os-swap ({slots} slots)", "os-swap", slots, True, True),
             (f"infiniswap ({slots} slots)", "infiniswap", slots, True, False)]
+    return runs
+
+
+def abba_tail(slots, tag=""):
+    """Legacy and zero-restore once more, in the reverse order, after a list
+    that ran zero-restore then legacy: ``restore_walls`` then compares means
+    in which neither pays alone for coming first."""
+    t = f" {tag}" if tag else ""
+    return [(f"valet legacy again{t} ({slots} slots)", "valet", slots, False, True),
+            (f"valet zero-restore again{t} ({slots} slots)", "valet", slots, True, True)]
 
 
 def bf16_model(name, seed):
@@ -835,8 +927,10 @@ def phase_hymba():
     geom = dict(max_batch=8, max_seq=1344, page=16)
     slots, need = pressured_slots(prompts, geom["max_batch"], geom["page"])
     log(f"  prompts {lens}; the first 8 need {need} pages, pressured at {slots}")
-    serve_full("hymba-1.5b", cfg, params, ctx, prompts, exact_runs(slots, 1024),
-               max_new=32, **geom)
+    walls = serve_full("hymba-1.5b", cfg, params, ctx, prompts,
+                       exact_runs(slots, 1024) + abba_tail(slots), max_new=32,
+                       **geom)
+    restore_walls("hymba-1.5b", walls)
     with off_path():
         profile_decode("hymba-1.5b", cfg, params, ctx, prompts, pool_slots=1024, **geom)
         prompt = rng.integers(2, cfg.vocab, size=1300)
@@ -1113,6 +1207,241 @@ def tenant_books(coord, engines):
     return problems
 
 
+# --------------------------------------------------------------------------
+# Phase 9: deepseek-moe-16b served under pressure
+# --------------------------------------------------------------------------
+
+MOE_LAYERS = 12           # 1 dense + 11 MoE layers of 28, full width
+
+
+def moe_row_check(cfg, params):
+    """One MoE layer's decode FFN (``moe_ffn`` over the (8, 1, d) batch the
+    engine's decode step routes, capacity 8, so nothing drops): row 0's
+    output must keep its bits with the other 7 rows zero ("alone"), with
+    them holding other states, and on a repeat.  A batch-1 call, a shape
+    the engine never issues, is reported beside it."""
+    from repro_torch.models.decode import layer_infos, layer_params
+    from repro_torch.models.moe import capacity, moe_ffn
+    info = next(i for i in layer_infos(cfg) if i.ffn == "moe")
+    p = layer_params(params, info)["moe"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = torch.randn((8, 1, cfg.d_model), device="cuda", generator=g).to(torch.bfloat16)
+    alone = torch.zeros_like(batch)
+    alone[0] = batch[0]
+    out_alone = moe_ffn(p, alone, cfg.moe)[0][0]
+    out_batch = moe_ffn(p, batch, cfg.moe)[0][0]
+    out_again = moe_ffn(p, batch.clone(), cfg.moe)[0][0]
+    out_one = moe_ffn(p, batch[:1], cfg.moe)[0][0]
+    torch.cuda.synchronize()
+    for what, other in (("inside the batch of 8", out_batch), ("on a repeat", out_again)):
+        if not torch.equal(out_alone, other):
+            fail(f"moe row independence: row 0 alone differs from row 0 {what} "
+                 f"(max abs diff {max_err(out_alone, other):.3e})")
+    one = ("bit-identical" if torch.equal(out_one, out_alone)
+           else f"max abs diff {max_err(out_one, out_alone):.3e}")
+    log(f"  moe decode row check (layer {info.seg}.{info.idx}, capacity "
+        f"{capacity(8, cfg.moe)} of 8 rows x top-{cfg.moe.top_k}): row 0 bit-identical "
+        f"alone (7 zero rows), inside the batch of 8 and on a repeat; a batch-1 "
+        f"call (not an engine shape): {one}")
+
+
+def phase_deepseek():
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import capacity
+    log(f"phase 9: full-width deepseek-moe-16b at {MOE_LAYERS} of 28 layers (1 dense + "
+        f"{MOE_LAYERS - 1} MoE: 64 experts of 1408, top-6, 2 shared), bf16, f32 KV pool")
+    cfg = replace(ARCHS["deepseek-moe-16b"], n_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = T.init_params(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+    n = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  params {sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B ({n / 1e9:.2f} GB; "
+        f"the routers f32)")
+    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.bfloat16)
+    with off_path():
+        moe_row_check(cfg, params)
+    rng = np.random.default_rng(4)
+    lens = rng.choice([128, 256, 512], size=12)
+    prompts = [rng.integers(2, cfg.vocab, size=int(x)) for x in lens]
+    geom = dict(max_batch=8, max_seq=576, page=16)
+    slots, need = pressured_slots(prompts, geom["max_batch"], geom["page"])
+    log(f"  prompts {[int(x) for x in lens]}; the first 8 need {need} pages, pressured "
+        f"at {slots}; a decode step routes its 8 rows at capacity "
+        f"{capacity(geom['max_batch'], cfg.moe)}, so it drops nothing")
+    walls = serve_full("deepseek-moe-16b", cfg, params, ctx, prompts,
+                       exact_runs(slots, 512) + abba_tail(slots), max_new=32, **geom)
+    restore_walls("deepseek-moe-16b", walls)
+    log("  (infiniswap is reported, not held: its re-prefill routes prompt and "
+        "generated tokens in one call, so its capacity and drops differ from the "
+        "first prefill's, and in bf16 it recomputes KV with other products)")
+    with off_path():
+        profile_decode("deepseek-moe-16b", cfg, params, ctx, prompts, **geom)
+        profile_prefill("deepseek-moe-16b", cfg, params, ctx,
+                        rng.integers(2, cfg.vocab, size=512))
+    del params
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# Phase 10: llama-3.2-vision and whisper, prefill and decode
+# --------------------------------------------------------------------------
+
+CROSS_BATCH = 4
+CROSS_NEW = 16
+# decode against the full forward in f32.  The CPU test holds 5e-2, but at
+# these logits another frontend moves them by only ~2e-2, so the card holds
+# 1e-3 (the gaps measured were 4.7e-5 and 6.3e-6) and also holds the gap to
+# a tenth of the frontend's effect: a step that read zeroed or stale cross
+# K/V would fail both.
+CROSS_TOL = 1e-3
+
+
+def decode_rows(params, cfg, ctx, prompts, frontend, *, page=16, forced=None, check=False):
+    """Prefill each prompt alone (batch 1, as the engine does) into shared
+    page pools and its row's cross K/V, then decode every row together for
+    ``CROSS_NEW`` steps straight through ``models.decode``: greedy, or fed
+    the tokens of ``forced`` (B, CROSS_NEW).  With ``check``, the prefill's
+    and every step's logits are held against ``prefill_logits`` of each
+    row's sequence so far (off the main path).  Returns the fed tokens
+    (B, CROSS_NEW), the logits of the prefill and of every step
+    (CROSS_NEW + 1, B, V), and the largest difference from the forward."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    b, v = len(prompts), cfg.vocab
+    n_pages = -(-(max(len(p) for p in prompts) + CROSS_NEW) // page) + 1
+    bt = torch.arange(b * n_pages, dtype=torch.int32, device="cuda").reshape(b, n_pages)
+    caches = D.init_caches(cfg, b, pool_slots=b * n_pages, page=page, device="cuda")
+    seqs, first = [list(map(int, p)) for p in prompts], []
+    for i, p in enumerate(prompts):
+        one = D.init_caches(cfg, 1, pool_slots=1, page=page, device="cuda")
+        for oc, bc in zip(one["layers"], caches["layers"]):
+            if "pool" in bc:
+                oc["pool"] = bc["pool"]
+        lg, one = D.prefill(params, torch.as_tensor(p, device="cuda")[None], cfg, ctx,
+                            one, bt[i:i + 1], frontend=frontend[i:i + 1])
+        for oc, bc in zip(one["layers"], caches["layers"]):
+            for key in ("cross_k", "cross_v"):
+                if key in bc:
+                    bc[key][i].copy_(oc[key][0])
+        first.append(lg[0])
+    caches["lengths"] = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                                     device="cuda")
+    logits = torch.stack(first)
+    steps, fed, worst = [logits], [], 0.0
+
+    def held(lg):
+        nonlocal worst
+        with off_path():
+            for i in range(b):
+                full = T.prefill_logits(params, torch.as_tensor(seqs[i], device="cuda")[None],
+                                        cfg, ctx, frontend=frontend[i:i + 1])
+                worst = max(worst, max_err(full[0, :v], lg[i, :v]))
+
+    if check:
+        held(logits)
+    rows = torch.arange(b, device="cuda")
+    for t in range(CROSS_NEW):
+        nxt = logits.argmax(-1) if forced is None else forced[:, t]
+        fed.append(nxt)
+        pos = torch.as_tensor([len(sq) for sq in seqs], device="cuda")
+        for sq, tok in zip(seqs, nxt.tolist()):
+            sq.append(tok)
+        logits, caches = D.decode_step(params, caches, nxt, cfg, ctx, bt,
+                                       bt[rows, pos // page], pos % page)
+        steps.append(logits)
+        if check:
+            held(logits)
+    return torch.stack(fed, 1), torch.stack(steps), worst
+
+
+def to_bf16(params):
+    """A bf16 copy of an f32 tree; the reference's f32 leaves stay f32."""
+    from repro_torch.bridge import F32_LEAVES
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(x, k) for k, x in t.items()}
+        if isinstance(t, list):
+            return [walk(x) for x in t]
+        return t if key in F32_LEAVES else t.to(torch.bfloat16)
+    return walk(params)
+
+
+def cross_arch(name, cfg, seed, what):
+    """One cross-attention arch at full width: f32 with TF32 off, held
+    against its full forward, the frontend's effect, then the bf16 run's
+    drift from f32 on the same tokens."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, dtype=torch.float32, device="cuda")
+    n = sum(t.numel() for t in _leaves(params))
+    gates = open_gates(params)
+    log(f"  {name}: {what}; params {n / 1e9:.3f} B"
+        + ("; xgate set to 1.0 in every xattn layer (0 at init shuts the cross path)"
+           if gates else ""))
+    rng = np.random.default_rng(seed)
+    lens = sorted(int(x) for x in rng.integers(64, 257, size=CROSS_BATCH))
+    prompts = [rng.integers(2, cfg.vocab, size=x) for x in lens]
+    fg = torch.Generator(device="cuda").manual_seed(seed + 100)
+    shape = (CROSS_BATCH, cfg.n_frontend_tokens, cfg.d_model)
+    frontend = torch.randn(shape, device="cuda", generator=fg)
+    other = torch.randn(shape, device="cuda", generator=fg)
+    ctx32 = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    toks, logits32, worst = decode_rows(params, cfg, ctx32, prompts, frontend, check=True)
+    torch.cuda.synchronize()
+    log(f"  {name} f32: prompts {lens} + {CROSS_NEW} new, frontend {tuple(shape)}; "
+        f"prefill and {CROSS_NEW} decode steps against the full forward "
+        f"(prefill_logits on each row's sequence so far): max abs diff {worst:.3e} "
+        f"(tol {CROSS_TOL}; |logits| <= {float(logits32[..., :cfg.vocab].abs().max()):.3g}); "
+        f"{time.perf_counter() - t0:.1f} s with the checks")
+    if not worst <= CROSS_TOL:
+        fail(f"{name}: decode logits differ from the full forward by {worst:.3e}")
+    if not torch.isfinite(logits32[..., :cfg.vocab]).all():
+        fail(f"{name}: non-finite logits")
+    with off_path():
+        a = T.prefill_logits(params, torch.as_tensor(prompts[0], device="cuda")[None], cfg,
+                             ctx32, frontend=frontend[:1])
+        b = T.prefill_logits(params, torch.as_tensor(prompts[0], device="cuda")[None], cfg,
+                             ctx32, frontend=other[:1])
+    moved = max_err(a[:, :cfg.vocab], b[:, :cfg.vocab])
+    log(f"  {name}: another frontend moves row 0's prefill logits by up to {moved:.3e}")
+    if not moved > 1e-3:
+        fail(f"{name}: the frontend does not reach the logits ({moved:.3e})")
+    log(f"  {name}: the decode's gap from the full forward is "
+        f"{worst / moved:.2e} of the frontend's effect (limit 0.1)")
+    if not worst <= 0.1 * moved:
+        fail(f"{name}: decode gap {worst:.3e} is over a tenth of the frontend's "
+             f"effect {moved:.3e}")
+    p16 = to_bf16(params)
+    del params
+    ctx16 = T.ParallelCtx(remat=False, compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    _, logits16, _ = decode_rows(p16, cfg, ctx16, prompts, frontend, forced=toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    real = logits16[..., :cfg.vocab].float()
+    if not torch.isfinite(real).all():
+        fail(f"{name}: non-finite bf16 logits")
+    top1 = float((real.argmax(-1) == logits32[..., :cfg.vocab].argmax(-1)).float().mean())
+    log(f"  {name} bf16 (fed the f32 run's tokens): drift from f32 max abs "
+        f"{max_err(real, logits32[..., :cfg.vocab]):.3e}, top-1 agreement "
+        f"{100 * top1:.1f}% over {real.shape[0] * real.shape[1]} positions; prefill + "
+        f"{CROSS_NEW} steps {wall:.3f} s wall")
+    del p16
+    torch.cuda.empty_cache()
+
+
+def phase_cross():
+    from repro_torch.configs import ARCHS, replace
+    log("phase 10: cross-attention archs at full width, prefill + decode_step straight "
+        f"through models.decode, batch {CROSS_BATCH}, f32 pools")
+    cross_arch("llama-3.2-vision-11b", replace(ARCHS["llama-3.2-vision-11b"], n_layers=10),
+               seed=6, what="10 of 40 layers (2 x [4 attn + 1 xattn]), 6656 patch tokens")
+    cross_arch("whisper-large-v3", ARCHS["whisper-large-v3"], seed=7,
+               what="all 32 encoder + 32 decoder layers, 1536 frames")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1128,7 +1457,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1167,7 +1496,7 @@ def main():
         phase_reduced()
         log(f"  phase 3: {time.perf_counter() - t0:.1f} s wall")
 
-    # phases 4-8 are the main paths.  Each runs with every launch count and
+    # phases 4-10 are the main paths.  Each runs with every launch count and
     # every count of plain-version calls on CUDA tensors set to 0 just
     # before it, and read just after; the profiles and checks a phase runs
     # beside its serving runs are off the path (``off_path``)
@@ -1187,11 +1516,19 @@ def main():
                   (5, "gemma3-4b", phase_gemma, ("paged", "flash")),
                   (6, "hymba-1.5b", phase_hymba, ("paged", "flash", "ssd")),
                   (7, "mamba2-2.7b", phase_mamba2, ("ssd",)),
-                  (8, "multi-tenant granite-3-8b", phase_tenants, ("paged", "flash"))]
+                  (8, "multi-tenant granite-3-8b", phase_tenants, ("paged", "flash")),
+                  (9, "deepseek-moe-16b", phase_deepseek, ("paged", "flash")),
+                  (10, "llama-3.2-vision-11b and whisper-large-v3", phase_cross,
+                   ("paged", "flash"))]
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:
         if num not in phases:
             continue
+        # the previous path's engines may sit in reference cycles (a tenant's
+        # coordinator holds its donate callback): free their device memory
+        # before this path's peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
         for key, (mod, fn) in wrappers.items():
             getattr(mod, fn).launches = 0
             plain_cuda_calls[key] = 0

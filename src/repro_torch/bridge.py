@@ -18,8 +18,9 @@ import torch
 
 
 # leaves the reference keeps in float32 in a tree of any dtype: the SSD
-# decay, skip and dt bias (``models/ssm.py``) and the cross-attention gate
-F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "xgate"})
+# decay, skip and dt bias (``models/ssm.py``), the cross-attention gate and
+# the MoE router (``models/moe.py``)
+F32_LEAVES = frozenset({"A_log", "D", "dt_bias", "xgate", "router"})
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

@@ -108,10 +108,10 @@ def stream_page(pool: KVPool, k, v, slot) -> KVPool:
     """On-demand single-page stream-in (the zero-restore miss path).
 
     k/v: one page ``(page, n_kv, hd)``, usually a pinned host-tier blob;
-    ``slot`` a scalar index.  Only pages whose slot was *reused* since
-    preemption come back through here, one host read each.  The page is
-    copied into the pool in place with ``index_copy_`` (the host-to-device
-    copy is stream-ordered, so no host sync is needed)."""
+    ``slot`` a scalar index.  The page is copied into the pool in place with
+    ``index_copy_`` (the host-to-device copy is stream-ordered, so no host
+    sync is needed).  The serving engine streams a restore's pages in one
+    ``local_write_batch`` per layer instead, which writes the same bytes."""
     dev = pool.k.device
     s = _index([int(slot)], dev)
     pool.k.index_copy_(0, s, from_host_tier(k, pool.k)[None])
@@ -161,6 +161,15 @@ def to_host_tier_many(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     for s in streams.values():
         s.synchronize()
     return out
+
+
+def stack_host_tier(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Stack host-tier blobs along a new first axis, into pinned memory
+    when the blobs are pinned, so that the batch's copy to the device stays
+    asynchronous as each blob's own would be."""
+    out = torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
+                      pin_memory=xs[0].is_pinned())
+    return torch.stack(list(xs), out=out)
 
 
 def to_host_tier(x: torch.Tensor) -> torch.Tensor:

@@ -7,23 +7,28 @@ Layers are unrolled (heterogeneous caches per layer kind):
   sliding-window layer   -> ring buffer (bounded; no paging needed)
   SSM / hybrid layer     -> O(1) SSD state + conv ring per sequence (a hybrid
                             layer also has its attention pool or ring)
+  cross-attn layer (vlm ``xattn``, audio ``dec``) -> static per-request
+                            cross K/V, written once by the prefill
 
-The cross-attention kinds come with their ROADMAP item.
 The control plane (serve/engine.py) owns slot allocation; this module is the
 data plane: given block tables + append targets it computes one decode
 step.  All paged layers share one block table — a logical page allocation
 spans every paged layer (slot i of each layer's pool).
 
 Caches are updated **in place** (the reference returns new arrays): the
-pools and rings of ``caches`` are the same tensors after a step; ``lengths``
-and the SSM states are new tensors in the returned dict.
+pools and rings of ``caches`` are the same tensors after a step; ``lengths``,
+the SSM states and the prefill's cross K/V are new tensors in the returned
+dict.
 
 Kernels on this path: decode attention over the pool is the paged kernel
 (``kernels/paged_attention.py``), reading KV through the block table with no
 gathered copy; prefill attention is the flash kernel
-(``kernels/flash_attention.py``); the SSM prefill's scan is the SSD kernel
-(``kernels/ssd_scan.py``, through ``models/ssm.py``).  SSM decode is plain
-PyTorch (the reference has no kernel for it).  On CPU tensors every kernel
+(``kernels/flash_attention.py``): causal self-attention, and non-causal
+cross-attention and whisper's encoder with ``Sk != Sq``; the SSM prefill's
+scan is the SSD kernel (``kernels/ssd_scan.py``, through ``models/ssm.py``).
+SSM decode, a decode step's cross-attention over the static cross K/V and
+the MoE dispatch (``models/moe.py``) are plain PyTorch (the reference has no
+kernel for them).  On CPU tensors every kernel
 runs its plain PyTorch version.
 """
 from __future__ import annotations
@@ -41,9 +46,11 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import combine_partials, decode_partial
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, rms_norm,
                                        swiglu)
-from repro_torch.models.transformer import (ParallelCtx, add_mixer,
-                                            check_ported, mask_vocab_pad,
-                                            segments, unembed_matrix)
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.transformer import (ParallelCtx, _sinusoidal,
+                                            add_mixer, encode, mask_vocab_pad,
+                                            segments, sinusoidal_at,
+                                            unembed_matrix, xgate)
 
 
 @dataclass(frozen=True)
@@ -95,7 +102,6 @@ def init_caches(cfg: ArchConfig, batch: int, *, pool_slots: int, page: int,
     hd = cfg.resolved_head_dim
     layers = []
     for info in layer_infos(cfg):
-        check_ported(info.kind, info.ffn)
         c: Dict[str, Any] = {}
         if info.uses_paged:
             c["pool"] = dev.make_kv_pool(pool_slots, page, cfg.n_kv_heads,
@@ -106,6 +112,11 @@ def init_caches(cfg: ArchConfig, batch: int, *, pool_slots: int, page: int,
         if info.uses_ssm:
             c["ssm"] = ssm_lib.ssm_init_state(batch, cfg.d_model, cfg.ssm,
                                               dtype, device=device)
+        if info.uses_cross:
+            n = n_cross or cfg.n_frontend_tokens
+            for key in ("cross_k", "cross_v"):
+                c[key] = torch.zeros((batch, n, cfg.n_kv_heads, hd),
+                                     dtype=dtype, device=device)
         layers.append(c)
     return {"layers": layers,
             "lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -172,7 +183,24 @@ def _ring_attn_step(p, x, cache, cfg, step_args, window):
     return _attn_out(p, out, b), {**cache, "ring": ring}
 
 
-def _ffn_step(p, x, info: LayerInfo):
+def _cross_attn_step(p, x, cache, cfg):
+    """One query token per row over the row's static cross K/V."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q = matmul(x, p["wq"]).reshape(b, cfg.n_heads, hd)
+    valid = torch.ones(cache["cross_k"].shape[:2], dtype=torch.bool,
+                       device=x.device)
+    m, l, acc = decode_partial(q, cache["cross_k"], cache["cross_v"], valid)
+    out = combine_partials((m[None], l[None], acc[None]), x.dtype)
+    return _attn_out(p, out, b)
+
+
+def _ffn_step(p, x, cfg: ArchConfig, info: LayerInfo):
+    """x: (T, d).  MoE routes all T rows in one call (T = the batch in
+    decode, inactive rows too; B * S in prefill): the capacity, and so
+    what is dropped, depends on T, as in the reference."""
+    if info.ffn == "moe":
+        return moe_ffn(p["moe"], x[:, None, :], cfg.moe)[0][:, 0, :]
     if info.ffn == "gelu":
         return gelu_mlp(p["mlp"], x)
     return swiglu(p["mlp"], x)
@@ -180,24 +208,29 @@ def _ffn_step(p, x, info: LayerInfo):
 
 def decode_layer(p, x, info: LayerInfo, cache, cfg: ArchConfig,
                  ctx: ParallelCtx, step_args):
-    check_ported(info.kind, info.ffn)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     new_cache = dict(cache)
-    a = y = None
-    if info.kind in ("attn", "hybrid"):
-        if info.uses_paged:
-            a, new_cache = _paged_attn_step(p["attn"], h, new_cache, cfg,
-                                            step_args)
-        else:
-            a, new_cache = _ring_attn_step(p["attn"], h, new_cache, cfg,
-                                           step_args, info.window)
-    if info.uses_ssm:
-        y, new_cache["ssm"] = ssm_lib.ssm_decode_step(
-            p["ssm"], h, cache["ssm"], cfg.d_model, cfg.ssm)
-    x = add_mixer(p, x, info.kind, a, y, cfg)
+    if info.kind == "xattn":
+        x = x + xgate(p, x) * _cross_attn_step(p["xattn"], h, new_cache, cfg)
+    else:
+        a = y = None
+        if info.kind in ("attn", "dec", "hybrid"):
+            if info.uses_paged:
+                a, new_cache = _paged_attn_step(p["attn"], h, new_cache, cfg,
+                                                step_args)
+            else:
+                a, new_cache = _ring_attn_step(p["attn"], h, new_cache, cfg,
+                                               step_args, info.window)
+        if info.uses_ssm:
+            y, new_cache["ssm"] = ssm_lib.ssm_decode_step(
+                p["ssm"], h, cache["ssm"], cfg.d_model, cfg.ssm)
+        x = add_mixer(p, x, a, y, cfg)
+        if info.kind == "dec":
+            hx = rms_norm(p["lnx"], x, cfg.norm_eps)
+            x = x + _cross_attn_step(p["xattn"], hx, new_cache, cfg)
     if info.ffn != "none":
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + _ffn_step(p, h2, info)
+        x = x + _ffn_step(p, h2, cfg, info)
     return x, new_cache
 
 
@@ -210,15 +243,17 @@ def decode_step(params, caches, tokens, cfg: ArchConfig, ctx: ParallelCtx,
     are updated in place.
     """
     device = caches["lengths"].device
-    if cfg.family == "audio":
-        check_ported("dec")
     tokens = torch.as_tensor(tokens, device=device)
     x = params["embed"][tokens].to(ctx.compute_dtype)
+    lengths = caches["lengths"]
+    if cfg.family == "audio":
+        # sinusoidal position at each sequence's current length
+        x = x + sinusoidal_at(lengths.float()[:, None],
+                              cfg.d_model).to(x.dtype)
     if active is None:
         active = torch.ones(tokens.shape, dtype=torch.bool, device=device)
     active = torch.as_tensor(active, device=device)
     append_slot = torch.as_tensor(append_slot, device=device).long()
-    lengths = caches["lengths"]
     infos = layer_infos(cfg)
     paged = [c["pool"] for c in caches["layers"] if "pool" in c]
     step_args = {
@@ -250,31 +285,57 @@ def decode_step(params, caches, tokens, cfg: ArchConfig, ctx: ParallelCtx,
 # Cache-building prefill (exact, unrolled)
 # --------------------------------------------------------------------------
 
+def _cross_prefill(xp, h, enc_out, cache, cfg):
+    """A cross-attention layer's prefill: project the (B, N, d) encoder or
+    frontend states into the layer's cross K/V (kept in ``cache`` for
+    decode) and attend to them, non-causal, through the flash kernel."""
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    cache["cross_k"] = matmul(enc_out, xp["wk"]).reshape(
+        b, -1, cfg.n_kv_heads, hd)
+    cache["cross_v"] = matmul(enc_out, xp["wv"]).reshape(
+        b, -1, cfg.n_kv_heads, hd)
+    q = matmul(h, xp["wq"]).reshape(b, s, cfg.n_heads, hd)
+    a = flash_attention_op(q, cache["cross_k"], cache["cross_v"],
+                           causal=False)
+    return matmul(a.reshape(b, s, -1), xp["wo"])
+
+
 def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
             block_table, frontend=None):
     """Run the prompt through the model, filling every cache in place.
 
     tokens: (B, S) — equal prompt lengths per prefill batch.
     block_table: (B, P) pre-allocated slots for ceil(S/page) pages (plus the
-    current partial page).  Returns (last_logits, caches).
+    current partial page).  ``frontend``: whisper's (B, N, d) frame
+    embeddings (required for the audio arch; its encoder runs here) or
+    llama-vision's (B, N, d) patch embeddings.  Returns (last_logits,
+    caches).
     """
-    if cfg.family == "audio" or frontend is not None:
-        check_ported("dec")
     device = caches["lengths"].device
     tokens = torch.as_tensor(tokens, device=device)
     b, s = tokens.shape
     hd = cfg.resolved_head_dim
     x = params["embed"][tokens].to(ctx.compute_dtype)
+    enc_out = None
+    if cfg.family == "audio":
+        if frontend is None:
+            raise ValueError("the audio arch needs frame embeddings")
+        x = x + _sinusoidal(s, cfg.d_model, device).to(x.dtype)
+        enc_out = encode(params, torch.as_tensor(frontend, device=device),
+                         cfg, ctx, attention=flash_attention_op)
+    elif frontend is not None:
+        enc_out = torch.as_tensor(frontend, device=device).to(
+            ctx.compute_dtype)
     positions = torch.arange(s, device=device)[None]
     block_table = torch.as_tensor(block_table, device=device).long()
     new_layers = []
     for info, cache in zip(layer_infos(cfg), caches["layers"]):
-        check_ported(info.kind, info.ffn)
         p = layer_params(params, info)
         cache = dict(cache)
         h = rms_norm(p["ln1"], x, cfg.norm_eps)
         a = y = None
-        if info.kind in ("attn", "hybrid"):
+        if info.kind in ("attn", "dec", "hybrid"):
             ap = p["attn"]
             q = matmul(h, ap["wq"]).reshape(b, s, cfg.n_heads, hd)
             k = matmul(h, ap["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
@@ -306,10 +367,18 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
             ring.k[:, tail % w] = k[:, tail].to(ring.k.dtype)
             ring.v[:, tail % w] = v[:, tail].to(ring.v.dtype)
 
-        x = add_mixer(p, x, info.kind, a, y, cfg)
+        if info.kind == "xattn":
+            x = x + xgate(p, x) * _cross_prefill(p["xattn"], h, enc_out,
+                                                 cache, cfg)
+        else:
+            x = add_mixer(p, x, a, y, cfg)
+            if info.kind == "dec":
+                hx = rms_norm(p["lnx"], x, cfg.norm_eps)
+                x = x + _cross_prefill(p["xattn"], hx, enc_out, cache, cfg)
         if info.ffn != "none":
             h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-            x = x + _ffn_step(p, h2.reshape(b * s, -1), info).reshape(b, s, -1)
+            x = x + _ffn_step(p, h2.reshape(b * s, -1), cfg,
+                              info).reshape(b, s, -1)
         new_layers.append(cache)
 
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)

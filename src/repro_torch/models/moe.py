@@ -1,0 +1,184 @@
+"""Mixture-of-experts FFN (PyTorch), single device.
+
+Two paths, as in the reference:
+
+* ``moe_ffn_reference`` — exact loop-over-experts oracle (no capacity drops).
+* ``moe_ffn`` — capacity-bounded sort-based dispatch: the reference's
+  ``_dispatch_local`` on one shard holding every expert.  Expert
+  parallelism (the reference's ``shard_map`` path) comes with the
+  multi-device launch layer.
+
+What the port keeps bit for bit from the reference, and how:
+
+* **The router is f32** whatever the weights' dtype: ``router`` is an f32
+  leaf and the logits are ``x.float() @ router``.
+* **Ties go to the lower expert index**, as ``jax.lax.top_k`` orders them:
+  the top k are the first k of a *stable* descending sort (``torch.topk``
+  promises no order among equal values).
+* **Drops.** The capacity is ``max(int(T k / E cf), 8)`` over the T rows of
+  the call.  Entries are sorted stably by expert; of the first
+  ``e_local * cap`` sorted entries, each expert keeps its first ``cap`` in
+  token order; every other entry is dropped (gate 0).
+* **A fixed order of sums.** The reference combines with a scatter-add; an
+  f32 ``index_add_`` uses atomics on CUDA, whose order changes from call to
+  call.  Here each token's k weighted outputs are gathered into a
+  (T, k, d) tensor (zero where dropped) and summed over k by one reduction,
+  whose order is fixed for the shape, so two calls give the same bits and a row's output does not depend on the
+  other rows of its call (given the same capacity).
+
+The expert products are batched matmuls over a (E, cap + 1, d) buffer, as
+the reference's einsums are; no Pallas kernel belongs to MoE.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models.layers import matmul, normal_, swiglu
+
+
+def padded_experts(moe: MoEConfig, ep_align: int = 16) -> int:
+    """Expert-table size padded so EP shards cleanly (qwen: 60 -> 64).
+
+    Padding experts are never routed to (router has n_experts logits)."""
+    return -(-moe.n_experts // ep_align) * ep_align
+
+
+def init_moe(d: int, moe: MoEConfig, n_layers: int, *,
+             generator: torch.Generator, dtype=torch.float32, device="cuda"):
+    """The ``moe`` subtree of ``n_layers`` stacked layers with the
+    reference's shapes, dtypes and scales: an f32 router at 0.006, experts
+    and shared experts at 0.02.  Filled layer by layer in place."""
+    e_pad, f = padded_experts(moe), moe.d_expert
+    empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+    params = {
+        "router": torch.empty((n_layers, d, moe.n_experts),
+                              dtype=torch.float32, device=device),
+        "experts": {"wg": empty(n_layers, e_pad, d, f),
+                    "wu": empty(n_layers, e_pad, d, f),
+                    "wd": empty(n_layers, e_pad, f, d)},
+    }
+    random = [(params["router"], 0.006)] + \
+        [(w, 0.02) for w in params["experts"].values()]
+    if moe.n_shared:
+        fs = moe.n_shared * f
+        params["shared"] = {"wgu": empty(n_layers, d, 2 * fs),
+                            "wd": empty(n_layers, fs, d)}
+        random += [(w, 0.02) for w in params["shared"].values()]
+    for i in range(n_layers):
+        for w, scale in random:
+            normal_(w[i], generator, scale)
+    return params
+
+
+def router_topk(params, x, moe: MoEConfig):
+    """Router probabilities + top-k selection + aux losses.
+
+    x: (T, d).  Returns (eids (T,k) int64, gates (T,k) f32, aux_loss scalar).
+    """
+    logits = x.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    # stable descending sort: on a tie the lower expert index comes first
+    gates, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eids = gates[:, :moe.top_k], eids[:, :moe.top_k]
+    if moe.renorm_topk:
+        gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    # load-balance aux: E * sum_e (frac tokens to e) * (mean prob of e)
+    e = moe.n_experts
+    ind = F.one_hot(eids, e).float().sum(1)                          # (T,E)
+    f_e = ind.mean(0) / moe.top_k
+    p_e = probs.mean(0)
+    aux = e * torch.sum(f_e * p_e) * moe.router_aux_coef
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * \
+        moe.router_z_coef
+    return eids, gates, aux + zloss
+
+
+def _expert_mlp(x, wg, wu, wd):
+    """SwiGLU of every expert over its rows.  x: (E, C, d); w*: (E, ...)."""
+    h = matmul(x, wg)
+    u = matmul(x, wu)
+    h = F.silu(h.float()).to(x.dtype) * u
+    return matmul(h, wd)
+
+
+def moe_ffn_reference(params, x, moe: MoEConfig):
+    """Exact oracle: every expert applied to every token, masked combine."""
+    t, d = x.shape
+    eids, gates, aux = router_topk(params, x, moe)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    ex = params["experts"]
+    for e in range(moe.n_experts):
+        ye = _expert_mlp(x, ex["wg"][e], ex["wu"][e], ex["wd"][e]).float()
+        w = torch.where(eids == e, gates, 0.0).sum(-1)                # (T,)
+        out = out + w[:, None] * ye
+    if moe.n_shared:
+        out = out + swiglu(params["shared"], x).float()
+    return out.to(x.dtype), aux
+
+
+def _dispatch_local(x, eids, gates, wg, wu, wd, *, e_base, e_local, cap):
+    """Capacity-bounded dispatch of tokens to the local experts.
+
+    x: (T, d); eids/gates: (T, k); w*: (E_loc, ...).  Returns (T, d) f32.
+    """
+    t, d = x.shape
+    k = eids.shape[1]
+    n = t * k
+    dev = x.device
+    flat_e = eids.reshape(-1).long() - e_base                        # (T*k,)
+    valid = (flat_e >= 0) & (flat_e < e_local)
+
+    # stable sort by local expert; invalid entries pushed to the end
+    key, order = torch.sort(torch.where(valid, flat_e, e_local), stable=True)
+    # position within each expert's group (the groups are contiguous)
+    rank = torch.arange(n, device=dev)
+    pos = rank - torch.searchsorted(key, key)
+    keep = (key < e_local) & (pos < cap) & (rank < e_local * cap)
+    # buffer row of each sorted entry: expert-major, cap + 1 rows an expert
+    # (the last one a pad row, as in the reference); dropped entries go to
+    # one spare row past the buffer, never read
+    spare = e_local * (cap + 1)
+    row = torch.where(keep, key * (cap + 1) + pos, spare)
+    buf = x.new_zeros((spare + 1, d))
+    buf[row] = x[order // k]
+    y = _expert_mlp(buf[:spare].view(e_local, cap + 1, d), wg, wu, wd)
+    y = torch.cat([y.reshape(spare, d), y.new_zeros((1, d))])
+
+    # back to (token, choice) order: entry order[i] is sorted entry i
+    entry_row = torch.empty_like(row)
+    entry_row[order] = row
+    vals = y[entry_row].float() * gates.reshape(-1, 1).float()
+    # one reduction over k, in a fixed order for the shape and with no
+    # atomics, where the reference scatter-adds
+    return vals.view(t, k, d).sum(1)
+
+
+def capacity(t: int, moe: MoEConfig) -> int:
+    """Entries each expert keeps in a call that routes ``t`` rows."""
+    return max(int(t * moe.top_k / moe.n_experts * moe.capacity_factor), 8)
+
+
+def moe_ffn(params, x, moe: MoEConfig):
+    """Routed + shared expert FFN.  x: (B, S, d) (or (T, d)).
+
+    Single-shard capacity-bounded dispatch over every (B * S) row of the
+    call.  Returns (out in x's dtype, aux_loss)."""
+    squeeze = x.dim() == 2
+    if squeeze:
+        x = x[None]
+    b, s, d = x.shape
+    xt = x.reshape(-1, d)
+    eids, gates, aux = router_topk(params, xt, moe)
+    ex = params["experts"]
+    out = _dispatch_local(xt, eids, gates, ex["wg"], ex["wu"], ex["wd"],
+                          e_base=0, e_local=ex["wg"].shape[0],
+                          cap=capacity(b * s, moe))
+    out = out.reshape(b, s, d).to(x.dtype)
+    if moe.n_shared:
+        out = out + swiglu(params["shared"], x)
+    if squeeze:
+        out = out[0]
+    return out, aux

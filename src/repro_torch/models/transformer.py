@@ -3,13 +3,15 @@
 An architecture is a list of ``Segment``s — homogeneous runs of layers whose
 parameters are stacked on a leading layer axis, as in the reference (the
 weight bridge carries that layout over unchanged).  Heterogeneous patterns
-(gemma3's 5:1 local:global) become short segment lists.
+(gemma3's 5:1 local:global, hymba's 3 global layers, llama-vision's
+every-5th cross-attention layer, whisper's encoder and decoder) become short
+segment lists.
 
-This port covers the dense and sliding-window kinds (``attn`` segments with
-SwiGLU or GELU FFNs) and the SSM kinds (``ssm``: mamba2; ``hybrid``: hymba's
-parallel attention and SSD heads).  The other kinds raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  There is
-no mesh: sharding comes with the multi-device launch layer (ROADMAP Queue 1
+Every kind of the reference is here: ``attn`` (dense, sliding-window, and
+with a SwiGLU, GELU or MoE FFN), ``ssm`` (mamba2), ``hybrid`` (hymba's
+parallel attention and SSD heads), ``xattn`` (llama-vision's gated
+cross-attention layers), ``enc`` and ``dec`` (whisper).  There is no mesh:
+sharding comes with the multi-device launch layer (ROADMAP Queue 1
 item 13).
 """
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from repro_torch.bridge import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
                                        rms_norm, swiglu)
@@ -41,22 +44,6 @@ class ParallelCtx:
     loss_chunk: int = 256
     compute_dtype: Any = torch.float32
     attn_impl: str = "reference"          # unread, as in the reference
-
-
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 10 (MoE)",
-    "xattn": "ROADMAP Queue 1 item 11 (cross-attention kinds)",
-    "dec": "ROADMAP Queue 1 item 11 (cross-attention kinds)",
-    "enc": "ROADMAP Queue 1 item 11 (cross-attention kinds)",
-}
-
-
-def check_ported(kind: str, ffn: str = "swiglu") -> None:
-    """Raise for a layer kind or FFN this slice does not port yet."""
-    for what in (kind, ffn):
-        if what in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{what!r} layers are not ported yet: {_NOT_PORTED[what]}")
 
 
 # --------------------------------------------------------------------------
@@ -132,6 +119,11 @@ def _segments(cfg: ArchConfig) -> List[Segment]:
     return [Segment("attn", cfg.n_layers, window=cfg.window)]
 
 
+def encoder_segments(cfg: ArchConfig) -> List[Segment]:
+    assert cfg.family == "audio"
+    return [Segment("enc", cfg.encoder_layers, ffn="gelu")]
+
+
 # --------------------------------------------------------------------------
 # Init: stacked per segment, filled in place layer by layer
 # --------------------------------------------------------------------------
@@ -160,55 +152,91 @@ _SSM_RANDOM = {"wz": 0.02, "wx": 0.02, "wbc": 0.02, "wdt": 0.02,
                "conv_x": 0.5, "conv_bc": 0.5, "out_proj": 0.02}
 
 
-def init_params(cfg: ArchConfig, *, generator: torch.Generator,
-                dtype=torch.float32, device="cuda"):
-    """Random parameters with the reference's shapes, dtypes and scales:
-    N(0, 0.02) weights, ``wo`` at 0.02 / sqrt(2 L), SSM conv weights at
-    0.5, zero norms, and the reference's fixed SSM decay, skip and dt bias.
-    Each stacked tensor is allocated once and filled layer by layer in
-    place, so a full-width init never holds two copies.  ``generator`` must
-    live on ``device``.  The numbers differ from the reference's
-    ``jax.random`` draws; parity tests carry the reference's parameters
-    over with ``repro_torch.bridge``."""
+def _attn_params(n, cfg: ArchConfig, empty):
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {"wq": empty(n, d, cfg.n_heads * hd),
+            "wk": empty(n, d, cfg.n_kv_heads * hd),
+            "wv": empty(n, d, cfg.n_kv_heads * hd),
+            "wo": empty(n, cfg.n_heads * hd, d)}
+
+
+def _init_segment(seg: Segment, cfg: ArchConfig, generator, dtype, device):
+    """One segment's stacked layer tree, the reference's ``init_layer``
+    stacked over ``seg.count`` layers."""
+    d = cfg.d_model
+    n, f = seg.count, seg.d_ff or cfg.d_ff
     empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
-    params = {"embed": normal_(empty(cfg.padded_vocab, d), generator),
-              "final_ln": zeros(d), "segments": []}
     wo_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
-    for seg in segments(cfg):
-        check_ported(seg.kind, seg.ffn)
-        n, f = seg.count, seg.d_ff or cfg.d_ff
-        layer = {"ln1": zeros(n, d)}
-        random = []                     # (tensor, scale), filled in order
-        if seg.kind in ("attn", "hybrid"):
-            layer["attn"] = {"wq": empty(n, d, cfg.n_heads * hd),
-                             "wk": empty(n, d, cfg.n_kv_heads * hd),
-                             "wv": empty(n, d, cfg.n_kv_heads * hd),
-                             "wo": empty(n, cfg.n_heads * hd, d)}
-            random += [(w, wo_scale if name == "wo" else 0.02)
-                       for name, w in layer["attn"].items()]
-        if seg.kind in ("ssm", "hybrid"):
-            layer["ssm"] = _ssm_params(n, cfg, empty, zeros, device)
-            random += [(layer["ssm"][name], scale)
-                       for name, scale in _SSM_RANDOM.items()]
-        if seg.kind == "hybrid":
-            layer["attn_norm"] = zeros(n, d)
-            layer["ssm_norm"] = zeros(n, d)
-        if seg.ffn != "none":
+    layer = {"ln1": zeros(n, d)}
+    random = []                     # (tensor, scale), filled in order
+    projs = []
+    if seg.kind in ("attn", "enc", "dec", "hybrid"):
+        layer["attn"] = _attn_params(n, cfg, empty)
+        projs.append(layer["attn"])
+    if seg.kind == "dec":
+        layer["lnx"] = zeros(n, d)
+    if seg.kind in ("dec", "xattn"):
+        layer["xattn"] = _attn_params(n, cfg, empty)
+        projs.append(layer["xattn"])
+    if seg.kind == "xattn":
+        layer["xgate"] = torch.zeros((n,), dtype=torch.float32,
+                                     device=device)
+    for proj in projs:
+        random += [(w, wo_scale if name == "wo" else 0.02)
+                   for name, w in proj.items()]
+    if seg.kind in ("ssm", "hybrid"):
+        layer["ssm"] = _ssm_params(n, cfg, empty, zeros, device)
+        random += [(layer["ssm"][name], scale)
+                   for name, scale in _SSM_RANDOM.items()]
+    if seg.kind == "hybrid":
+        layer["attn_norm"] = zeros(n, d)
+        layer["ssm_norm"] = zeros(n, d)
+    if seg.ffn != "none":
+        layer["ln2"] = zeros(n, d)
+        if seg.ffn == "moe":
+            layer["moe"] = moe_lib.init_moe(d, cfg.moe, n, generator=generator,
+                                            dtype=dtype, device=device)
+        else:
             if seg.ffn == "gelu":
                 mlp = {"wi": empty(n, d, f), "wo": empty(n, f, d)}
             else:
                 mlp = {"wgu": empty(n, d, 2 * f), "wd": empty(n, f, d)}
-            layer["ln2"] = zeros(n, d)
             layer["mlp"] = mlp
             random += [(w, 0.02) for w in mlp.values()]
-        for i in range(n):
-            for w, scale in random:
-                normal_(w[i], generator, scale)
-        params["segments"].append(layer)
+    for i in range(n):
+        for w, scale in random:
+            normal_(w[i], generator, scale)
+    return layer
+
+
+def init_params(cfg: ArchConfig, *, generator: torch.Generator,
+                dtype=torch.float32, device="cuda"):
+    """Random parameters with the reference's tree, shapes, dtypes and
+    scales: N(0, 0.02) weights, ``wo`` at 0.02 / sqrt(2 L), an f32 MoE
+    router at 0.006, SSM conv weights at 0.5, zero norms, a zero f32
+    cross-attention gate ``xgate``, and the reference's fixed SSM decay,
+    skip and dt bias.  Each stacked tensor is allocated once and filled
+    layer by layer in place, so a full-width init never holds two copies.
+    ``generator`` must live on ``device``.  The numbers differ from the
+    reference's ``jax.random`` draws; parity tests carry the reference's
+    parameters over with ``repro_torch.bridge``."""
+    d = cfg.d_model
+    params = {"embed": normal_(torch.empty((cfg.padded_vocab, d),
+                                           dtype=dtype, device=device),
+                               generator),
+              "final_ln": torch.zeros((d,), dtype=dtype, device=device),
+              "segments": [_init_segment(seg, cfg, generator, dtype, device)
+                           for seg in segments(cfg)]}
     if not cfg.tie_embeddings:
-        params["unembed"] = normal_(empty(d, cfg.padded_vocab), generator)
+        params["unembed"] = normal_(torch.empty((d, cfg.padded_vocab),
+                                                dtype=dtype, device=device),
+                                    generator)
+    if cfg.family == "audio":
+        params["enc_segments"] = [
+            _init_segment(seg, cfg, generator, dtype, device)
+            for seg in encoder_segments(cfg)]
+        params["enc_ln"] = torch.zeros((d,), dtype=dtype, device=device)
     return params
 
 
@@ -217,8 +245,11 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
 # --------------------------------------------------------------------------
 
 def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
-            kv=None, positions=None, q_block=None):
-    """Projections + RoPE + blockwise attention + output projection."""
+            kv=None, positions=None, q_block=None, attention=None):
+    """Projections + RoPE + attention + output projection.  ``kv``: the
+    states a cross-attention reads (no RoPE then).  ``attention(q, k, v,
+    causal=, window=)`` replaces the blockwise path (the prefill passes the
+    flash kernel's op)."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     src = kv if kv is not None else x
@@ -230,57 +261,80 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
             torch.arange(s, device=x.device)[None]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    out = attn_lib.blockwise_attention(
-        q, k, v, causal=causal, window=window,
-        q_block=q_block or ctx.q_block, kv_block=ctx.kv_block)
+    if attention is None:
+        out = attn_lib.blockwise_attention(
+            q, k, v, causal=causal, window=window,
+            q_block=q_block or ctx.q_block, kv_block=ctx.kv_block)
+    else:
+        out = attention(q, k, v, causal=causal, window=window)
     return matmul(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
 
 
-def _apply_ffn(p, x, seg: Segment):
+def _apply_ffn(p, x, cfg: ArchConfig, seg: Segment):
+    """The layer's FFN: (out, aux loss); only MoE has an aux loss."""
+    if seg.ffn == "moe":
+        return moe_lib.moe_ffn(p["moe"], x, cfg.moe)
     if seg.ffn == "gelu":
-        return gelu_mlp(p["mlp"], x)
-    return swiglu(p["mlp"], x)
+        return gelu_mlp(p["mlp"], x), 0.0
+    return swiglu(p["mlp"], x), 0.0
 
 
-def add_mixer(p, x, kind, a, y, cfg: ArchConfig):
+def add_mixer(p, x, a, y, cfg: ArchConfig):
     """The residual add of a layer's mixer: the attention output ``a``, the
-    SSM output ``y``, or (hybrid) the mean of the two after each branch's
-    norm."""
-    if kind == "attn":
+    SSM output ``y``, or (hybrid, both given) the mean of the two after
+    each branch's norm."""
+    if y is None:
         return x + a
-    if kind == "ssm":
+    if a is None:
         return x + y
     return x + 0.5 * (rms_norm(p["attn_norm"], a, cfg.norm_eps)
                       + rms_norm(p["ssm_norm"], y, cfg.norm_eps))
 
 
+def xgate(p, x):
+    """The cross-attention layer's gate ``tanh(xgate)`` in x's dtype."""
+    return torch.tanh(p["xgate"].float()).to(x.dtype)
+
+
 def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
-                frontend=None, positions=None):
-    """One layer.  x: (B, S, d).  Returns (x, aux_loss)."""
-    check_ported(seg.kind, seg.ffn)
+                frontend=None, positions=None, attention=None):
+    """One layer.  x: (B, S, d); ``frontend``: the (B, N, d) states the
+    cross-attention reads; ``attention`` as in ``_attend``, for the
+    self-attention.  Returns (x, aux_loss)."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    a = y = None
-    if seg.kind in ("attn", "hybrid"):
-        a = _attend(p["attn"], h, cfg, ctx, window=seg.window,
-                    positions=positions)
-    if seg.kind in ("ssm", "hybrid"):
-        y = ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
-    x = add_mixer(p, x, seg.kind, a, y, cfg)
+    if seg.kind == "xattn":
+        x = x + xgate(p, x) * _attend(p["xattn"], h, cfg, ctx, window=0,
+                                      causal=False, kv=frontend, q_block=256)
+    else:
+        a = y = None
+        if seg.kind in ("attn", "enc", "dec", "hybrid"):
+            a = _attend(p["attn"], h, cfg, ctx, window=seg.window,
+                        causal=seg.kind != "enc", positions=positions,
+                        attention=attention)
+        if seg.kind in ("ssm", "hybrid"):
+            y = ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
+        x = add_mixer(p, x, a, y, cfg)
+        if seg.kind == "dec":
+            hx = rms_norm(p["lnx"], x, cfg.norm_eps)
+            x = x + _attend(p["xattn"], hx, cfg, ctx, window=0, causal=False,
+                            kv=frontend, q_block=256)
+    aux = 0.0
     if seg.ffn != "none":
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + _apply_ffn(p, h2, seg)
-    return x, 0.0
+        out, aux = _apply_ffn(p, h2, cfg, seg)
+        x = x + out
+    return x, aux
 
 
 def run_segments(seg_params, segs, x, cfg, ctx, frontend=None,
-                 positions=None):
+                 positions=None, attention=None):
     """Apply all segments, layer by layer over the stacked parameters."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_stack, seg in zip(seg_params, segs):
         for i in range(seg.count):
             p_layer = tree_map(lambda a: a[i], p_stack)
             x, a = apply_layer(p_layer, x, seg, cfg, ctx, frontend=frontend,
-                               positions=positions)
+                               positions=positions, attention=attention)
             aux_total = aux_total + a
     return x, aux_total
 
@@ -289,14 +343,48 @@ def run_segments(seg_params, segs, x, cfg, ctx, frontend=None,
 # Forward
 # --------------------------------------------------------------------------
 
+def _sinusoidal(s, d, device=None):
+    """(s, d) sinusoidal positions: sin then cos of pos / 10000^(2i/d)."""
+    pos = torch.arange(s, device=device, dtype=torch.float32)[:, None]
+    return sinusoidal_at(pos, d)
+
+
+def sinusoidal_at(pos, d):
+    """Sinusoidal embedding of float positions ``pos`` (..., 1): (..., d)."""
+    i = torch.arange(d // 2, device=pos.device, dtype=torch.float32)[None]
+    ang = pos / (10_000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, frontend, cfg: ArchConfig, ctx: ParallelCtx,
+           attention=None):
+    """Whisper's encoder over the (B, N, d) frame embeddings: sinusoidal
+    positions, the ``enc`` layers (``attention`` as in ``_attend``), then
+    ``enc_ln``."""
+    e = frontend.to(ctx.compute_dtype)
+    e = e + _sinusoidal(e.shape[1], cfg.d_model, e.device).to(e.dtype)
+    e, _ = run_segments(params["enc_segments"], encoder_segments(cfg), e, cfg,
+                        ctx, attention=attention)
+    return rms_norm(params["enc_ln"], e, cfg.norm_eps)
+
+
 def forward_hidden(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
                    frontend=None):
-    """Token ids (B, S) -> final hidden states (B, S, d)."""
-    if cfg.family == "audio":
-        check_ported("dec")
+    """Token ids (B, S) -> (final hidden states (B, S, d), aux loss).
+    ``frontend``: whisper's (B, N, d) frame embeddings (required for the
+    audio arch), or the (B, N, d) patch embeddings llama-vision's
+    cross-attention layers read."""
     x = params["embed"][tokens].to(ctx.compute_dtype)
+    enc_out = None
+    if cfg.family == "audio":
+        if frontend is None:
+            raise ValueError("the audio arch needs frame embeddings")
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+        enc_out = encode(params, frontend, cfg, ctx)
+    elif frontend is not None:
+        enc_out = frontend.to(ctx.compute_dtype)
     x, aux = run_segments(params["segments"], segments(cfg), x, cfg, ctx,
-                          frontend=frontend)
+                          frontend=enc_out)
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     return x, aux
 
@@ -313,3 +401,11 @@ def mask_vocab_pad(logits, cfg: ArchConfig):
         return logits
     ids = torch.arange(logits.shape[-1], device=logits.device)
     return torch.where(ids < cfg.vocab, logits, -1e30)
+
+
+def prefill_logits(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
+                   frontend=None):
+    """Full forward returning the last position's logits (B, V), f32."""
+    h, _ = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
+    w = unembed_matrix(params, cfg).to(h.dtype)
+    return mask_vocab_pad(matmul(h[:, -1], w).float(), cfg)

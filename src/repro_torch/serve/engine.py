@@ -23,7 +23,8 @@ table (``kernels/paged_attention.py``), restore needs no bulk copy:
 ``_restore`` repoints block-table entries at pool slots whose bytes survived
 preemption untouched (validated against the pool's per-slot generation
 counter) and streams only the pages whose slot was reused in the meantime,
-one ``device_ops.stream_page`` host read each.  The host blobs live in a
+one host read each, in one batched pool write per paged layer
+(``_stream_in``).  The host blobs live in a
 ``HostTier`` fed by the background flush.  ``zero_restore=False`` keeps the
 legacy bulk spill/restore as the comparison baseline (and ``os-swap`` /
 ``infiniswap`` keep their defining eager/delete behavior either way).
@@ -445,8 +446,8 @@ class ValetServeEngine:
         """Bring a paused sequence's pages back into the pool.
 
         Zero-restore mode repoints every page whose old slot is untouched
-        and streams only pages whose slot was reused, one
-        ``device_ops.stream_page`` read each.  Legacy mode keeps the bulk
+        and streams only pages whose slot was reused, one host read each,
+        batched into one pool write per paged layer.  Legacy mode keeps the bulk
         per-layer ``local_write_batch`` scatter over the whole sequence.
         Either way the restored bytes are bit-identical."""
         if not req.pages:
@@ -468,15 +469,7 @@ class ValetServeEngine:
         slots = self.pool.alloc_batch(needed_l, [self.step_counter] * n)
         if slots is None:           # cannot happen: free_count checked above
             raise RuntimeError(f"pool refused batch of {n} restore pages")
-        blobs = [self.host.pop(pg) for pg in needed_l]
-        idx = np.asarray(slots, np.int64)
-        for li in self.paged_layers:
-            ks = torch.stack([b[li][0] for b in blobs])
-            vs = torch.stack([b[li][1] for b in blobs])
-            # one whole-page scatter per paged layer via the shared bulk
-            # data-plane primitive
-            self.caches["layers"][li]["pool"] = dev.local_write_batch(
-                self.caches["layers"][li]["pool"], ks, vs, idx)
+        self._stream_in(needed_l, slots)
         self.gpt.map_local_batch(needed, np.asarray(slots, np.int64))
         self.gpt.drop_remote_batch(needed)
         self.tracker.on_write(needed_l, self.step_counter)
@@ -512,12 +505,7 @@ class ValetServeEngine:
             if slots is None:       # cannot happen: free_count checked above
                 raise RuntimeError(f"pool refused batch of {k} stream pages")
             self._note_allocated(slots)
-            for pg, sl in zip(stream, slots):
-                blob = self.host.pop(pg)
-                for li in self.paged_layers:
-                    self.caches["layers"][li]["pool"] = dev.stream_page(
-                        self.caches["layers"][li]["pool"],
-                        blob[li][0], blob[li][1], sl)
+            self._stream_in(stream, slots)
             self.gpt.map_local_batch(np.asarray(stream, np.int64),
                                      np.asarray(slots, np.int64))
             self.stats.streamed_pages += k
@@ -526,6 +514,22 @@ class ValetServeEngine:
         self.tracker.on_write(needed_l, self.step_counter)
         self.stats.restored_pages += n
         return True
+
+    def _stream_in(self, pages: List[int], slots: List[int]) -> None:
+        """Bring ``pages`` back from the host tier into ``slots`` (a
+        zero-restore's streamed pages, or a legacy restore's every page):
+        every blob is popped first, in ``pages`` order, then each paged
+        layer takes one stacked ``local_write_batch``.  The bytes are those
+        of one ``device_ops.stream_page`` per page and layer, moved in one
+        copy and one scatter per layer."""
+        blobs = [self.host.pop(pg) for pg in pages]
+        idx = torch.as_tensor(np.asarray(slots, np.int64),
+                              device=self.torch_device)
+        for li in self.paged_layers:
+            ks = dev.stack_host_tier([b[li][0] for b in blobs])
+            vs = dev.stack_host_tier([b[li][1] for b in blobs])
+            self.caches["layers"][li]["pool"] = dev.local_write_batch(
+                self.caches["layers"][li]["pool"], ks, vs, idx)
 
     # ------------------------------------------------------------ scheduling
 

@@ -1,7 +1,6 @@
 """The port's configs equal the reference's field by field, the weight
 bridge carries every arch's parameter tree over bit for bit, and the port's
-``init_params`` builds the reference's tree (or names the ROADMAP item for
-a kind not ported yet)."""
+``init_params`` builds the reference's tree for every arch."""
 import dataclasses
 
 import numpy as np
@@ -19,7 +18,6 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 NAMES = sorted(ref_configs.ARCHS)
-DENSE = ["granite-3-8b", "gemma3-4b", "phi3-mini-3.8b", "h2o-danube-3-4b"]
 SSM = ["mamba2-2.7b", "hymba-1.5b"]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -78,28 +76,48 @@ def test_bridge_bfloat16_and_cast():
     assert bridge.to_numpy({"w": c})["w"].dtype == np.float32
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", NAMES)
 def test_init_params_has_the_reference_tree(ref_params, name):
+    """Structure, shapes and dtypes of every arch's tree equal the
+    reference's; norms and the cross-attention gate are zero; the output
+    projections, the MoE router and the SSM's out_proj have the reference's
+    scales."""
     params = ref_params[name]
     cfg = configs.reduced(configs.ARCHS[name])
     tp = T.init_params(cfg,
                        generator=torch.Generator().manual_seed(0),
                        device="cpu")
-    want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), params)
-    got = bridge.tree_map(lambda t: (tuple(t.shape),
-                                     str(t.dtype).replace("torch.", "")), tp)
-    assert got == want
-    assert not tp["final_ln"].any() and not tp["segments"][0]["ln1"].any()
-    wo = tp["segments"][0]["attn"]["wo"]
-    assert abs(float(wo.std()) - 0.02 / np.sqrt(2 * cfg.n_layers)) < 0.003
+    assert shapes_and_dtypes(tp, torch_tree=True) == shapes_and_dtypes(params)
+    segs = tp["segments"] + tp.get("enc_segments", [])
+    assert not tp["final_ln"].any() and not any(s["ln1"].any() for s in segs)
+    wo_scale = 0.02 / np.sqrt(2 * cfg.n_layers)
+    for seg in segs:
+        for proj in ("attn", "xattn"):
+            if proj in seg:
+                assert abs(float(seg[proj]["wo"].std()) - wo_scale) < 0.003
+        if "ssm" in seg:
+            assert abs(float(seg["ssm"]["out_proj"].std()) - 0.02) < 0.003
+        if "moe" in seg:
+            assert abs(float(seg["moe"]["router"].std()) - 0.006) < 0.001
+            assert abs(float(seg["moe"]["experts"]["wd"].std()) - 0.02) < 0.003
+        if "xgate" in seg:
+            assert not seg["xgate"].any()
+        if "lnx" in seg:
+            assert not seg["lnx"].any()
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "llama-3.2-vision-11b",
-                                  "whisper-large-v3"])
-def test_unported_kinds_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(configs.reduced(configs.ARCHS[name]),
-                      generator=torch.Generator(), device="cpu")
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "qwen2-moe-a2.7b",
+                                  "llama-3.2-vision-11b", "whisper-large-v3"])
+def test_init_params_bf16_tree_keeps_the_f32_leaves(name):
+    """In a bf16 tree the MoE router and the cross-attention gate stay
+    f32, as in the reference's bf16 tree."""
+    cfg = ref_configs.reduced(ref_configs.ARCHS[name])
+    ref = jax.tree.map(np.asarray, ref_T.init_params(
+        jax.random.PRNGKey(0), cfg, dtype=jnp.bfloat16))
+    tp = T.init_params(configs.reduced(configs.ARCHS[name]),
+                       generator=torch.Generator().manual_seed(0),
+                       dtype=torch.bfloat16, device="cpu")
+    assert shapes_and_dtypes(tp, torch_tree=True) == shapes_and_dtypes(ref)
 
 
 def shapes_and_dtypes(tree, torch_tree=False):
@@ -134,11 +152,12 @@ def test_init_params_ssm_tree_matches_reference(name, dtype):
         assert abs(float(conv.std()) - 0.5) < 0.1
 
 
-@pytest.mark.parametrize("name", SSM + ["llama-3.2-vision-11b"])
+@pytest.mark.parametrize("name", SSM + ["llama-3.2-vision-11b",
+                                        "deepseek-moe-16b"])
 def test_bridge_cast_keeps_the_reference_f32_leaves(ref_params, name):
     """Bridging a tree with ``dtype=bfloat16`` casts the weights and leaves
     the leaves the reference always holds in f32 (``A_log``, ``D``,
-    ``dt_bias``, ``xgate``) as they are, bit for bit."""
+    ``dt_bias``, ``xgate``, the MoE ``router``) as they are, bit for bit."""
     params = ref_params[name]
     tp = bridge.to_torch(params, device="cpu", dtype=torch.bfloat16)
     flat_ref = jax.tree_util.tree_flatten_with_path(params)[0]

@@ -78,6 +78,10 @@ PAGED_SPLIT_CASES = {
     "g3-d120": (2, 6, 2, 120, 16, 10, [160, 75]),                           # 3
     "g16-d128": (2, 32, 2, 128, 16, 20, [320, 129]),                        # 5
     "g16-d256": (2, 32, 2, 256, 16, 20, [320, 129]),                        # 5
+    # one query head per KV head (heads padded to 4 in the kernel): the
+    # decode of whisper's dec layers and of deepseek
+    "whisper-dec": (8, 20, 20, 64, 16, 28, _LEN.integers(1, 449, 8)),      # 2
+    "deepseek": (8, 16, 16, 128, 16, 36, _LEN.integers(1, 545, 8)),        # 3
 }
 
 
@@ -103,6 +107,24 @@ def test_cuda_flash_kernel_matches_plain(cuda, s, d, window, dtype):
     want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,hq,hkv,d", [(40, 333, 8, 2, 128), (77, 77, 4, 4, 64),
+                                           (256, 1000, 32, 8, 128), (70, 300, 4, 4, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_non_causal_matches_plain(cuda, sq, sk, hq, hkv, d, dtype):
+    """Non-causal launches with Sk != Sq: llama-vision's cross-attention
+    over patch tokens, whisper's encoder and its decoder's cross-attention
+    over the frames (D 64, G 1)."""
+    q = torch.from_numpy(rand(0, (hq, sq, d))).to(cuda, TORCH[dtype])
+    k = torch.from_numpy(rand(1, (hkv, sk, d))).to(cuda, TORCH[dtype])
+    v = torch.from_numpy(rand(2, (hkv, sk, d))).to(cuda, TORCH[dtype])
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=False))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Decode path of the port: its incremental decode matches its own forward
 at every position (the ``test_decode.py`` invariant), its prefill and
-decode logits match the JAX reference within 1e-4 (f32) for the dense,
-sliding-window, SSM (mamba2) and hybrid (hymba) archs, and inactive batch
+decode logits match the JAX reference within 1e-4 (f32) for all 10 archs
+(dense, sliding-window, SSM, hybrid, MoE, and the cross-attention kinds
+with a frontend and a non-zero cross-attention gate), and inactive batch
 slots neither append nor advance."""
 import numpy as np
 import pytest
@@ -20,8 +21,9 @@ from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.core import device_ops as dev  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from torch_parity import frontend_for, open_xgates  # noqa: E402
 
-NAMES = ["granite-3-8b", "gemma3-4b", "mamba2-2.7b", "hymba-1.5b"]
+NAMES = sorted(ARCHS)
 REF_CTX = ref_T.ParallelCtx(remat=False, q_block=8, kv_block=8, loss_chunk=8)
 # the reference path, compiled once per shape (eager JAX is slow on CPU)
 ref_prefill = jax.jit(ref_D.prefill, static_argnums=(2, 3))
@@ -35,6 +37,7 @@ def models():
     for name in NAMES:
         cfg = reduced(ARCHS[name])
         params = ref_T.init_params(jax.random.PRNGKey(0), cfg)
+        params = open_xgates(params)
         tparams = bridge.to_torch(jax.tree.map(np.asarray, params), "cpu")
         out[name] = (cfg, params, t_reduced(T_ARCHS[name]), tparams)
     return out
@@ -54,7 +57,11 @@ def test_incremental_decode_matches_forward_and_reference(models, name):
     B, S_prompt, n_dec, page = 2, 20, 6, 4
     S_total = S_prompt + n_dec
     toks = np.random.default_rng(0).integers(0, cfg.vocab, size=(B, S_total))
-    h, _ = T.forward_hidden(tparams, torch.from_numpy(toks), tcfg, CTX)
+    fe = frontend_for(cfg, B)
+    tfe = None if fe is None else torch.from_numpy(fe)
+    rfe = None if fe is None else jnp.asarray(fe)
+    h, _ = T.forward_hidden(tparams, torch.from_numpy(toks), tcfg, CTX,
+                            frontend=tfe)
     fwd = h @ T.unembed_matrix(tparams, tcfg)
 
     max_pages = (S_total + page - 1) // page + 1
@@ -64,10 +71,11 @@ def test_incremental_decode_matches_forward_and_reference(models, name):
     ref_caches = ref_D.init_caches(cfg, B, pool_slots=B * max_pages + 2,
                                    page=page)
     logits, caches = D.prefill(tparams, torch.from_numpy(toks[:, :S_prompt]),
-                               tcfg, CTX, caches, torch.from_numpy(bt))
+                               tcfg, CTX, caches, torch.from_numpy(bt),
+                               frontend=tfe)
     ref_logits, ref_caches = ref_prefill(params, jnp.asarray(toks[:, :S_prompt]),
                                            cfg, REF_CTX, ref_caches,
-                                           jnp.asarray(bt))
+                                           jnp.asarray(bt), frontend=rfe)
     v = cfg.vocab
     np.testing.assert_allclose(logits[:, :v].numpy(),
                                fwd[:, S_prompt - 1, :v].numpy(), atol=5e-2)
@@ -92,9 +100,12 @@ def test_incremental_decode_matches_forward_and_reference(models, name):
     for li, (c, rc) in enumerate(zip(caches["layers"], ref_caches["layers"])):
         assert sorted(c) == sorted(rc)
         for key in c:
-            pairs = ([(c[key][f], rc[key][f]) for f in ("h", "conv")]
-                     if key == "ssm" else [(c[key].k, rc[key].k),
-                                           (c[key].v, rc[key].v)])
+            if key == "ssm":
+                pairs = [(c[key][f], rc[key][f]) for f in ("h", "conv")]
+            elif key in ("cross_k", "cross_v"):
+                pairs = [(c[key], rc[key])]
+            else:
+                pairs = [(c[key].k, rc[key].k), (c[key].v, rc[key].v)]
             for got, want in pairs:
                 np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                            atol=1e-5, err_msg=f"layer {li} {key}")

@@ -1,15 +1,17 @@
 """The port's serving engine against the JAX engine (reduced granite-3-8b,
 CPU, f32): the same tokens and the same ``EngineStats`` under pool pressure
 for valet and os-swap (the other policies are in ``test_torch_engine_*.py``),
-and bit-exact KV round trips through preemption in both restore modes."""
+bit-exact KV round trips through preemption in both restore modes, and
+the zero-restore stream-in batched into one pool write per paged layer."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import device_ops as dev  # noqa: E402
 from repro_torch.core.policies import POLICIES  # noqa: E402
 from repro_torch.serve import ValetServeEngine  # noqa: E402
-from torch_parity import (CTX, assert_same_engines, both, make_setup,  # noqa: E402
-                          run)
+from torch_parity import (CTX, assert_same_engines, assert_same_stats,  # noqa: E402
+                          both, make_setup, run)
 
 POLICY_NAMES = ["valet", "os-swap"]
 
@@ -106,3 +108,56 @@ def test_coordinator_registers_and_leases(setup):
     assert eng.pool.ensure_free(6) and rec.leased == eng.pool.size > 4
     assert eng._host_donate(100) > 0 and rec.leased == eng.pool.size == 4
     coord.check_invariants()
+
+
+class PerPageEngine(ValetServeEngine):
+    """The stream-in as one ``stream_page`` per page and layer: the data
+    plane's per-page primitive, against which the batched write is held."""
+
+    def _stream_in(self, pages, slots):
+        for pg, sl in zip(pages, slots):
+            blob = self.host.pop(pg)
+            for li in self.paged_layers:
+                self.caches["layers"][li]["pool"] = dev.stream_page(
+                    self.caches["layers"][li]["pool"], blob[li][0],
+                    blob[li][1], sl)
+
+
+def test_zero_restore_streams_in_one_batched_write_per_layer(setup,
+                                                             monkeypatch):
+    """Under pressure a zero-restore streams its reused pages in one
+    ``local_write_batch`` per paged layer (no per-page ``stream_page``), and
+    leaves the same tokens, ``EngineStats`` and pool bytes as the per-page
+    stream-in on the same trace."""
+    _, _, tcfg, tparams, prompts = setup
+    calls = {"local_write_batch": 0, "stream_page": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(dev, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(dev, name, counted)
+    restores = []
+
+    class Counting(ValetServeEngine):
+        def _stream_in(self, pages, slots):
+            before = calls["local_write_batch"]
+            super()._stream_in(pages, slots)
+            restores.append((len(pages), calls["local_write_batch"] - before))
+
+    outs, eng = run(Counting, tparams, tcfg, CTX, prompts, POLICIES, "valet",
+                    10, device="cpu")
+    assert eng.stats.streamed_pages > 0 and calls["stream_page"] == 0
+    assert sum(n for n, _ in restores) == eng.stats.streamed_pages
+    assert all(w == len(eng.paged_layers) for _, w in restores)
+
+    ref_outs, ref_eng = run(PerPageEngine, tparams, tcfg, CTX, prompts,
+                            POLICIES, "valet", 10, device="cpu")
+    assert calls["stream_page"] == \
+        eng.stats.streamed_pages * len(eng.paged_layers)
+    assert outs == ref_outs
+    assert_same_stats(ref_eng.stats, eng.stats)
+    for li in eng.paged_layers:
+        pool, ref_pool = (e.caches["layers"][li]["pool"]
+                          for e in (eng, ref_eng))
+        assert torch.equal(pool.k, ref_pool.k)
+        assert torch.equal(pool.v, ref_pool.v)

@@ -1,12 +1,14 @@
-"""Shared helpers of the engine parity tests (``test_torch_engine*.py``):
-drive the JAX reference engine and the port's engine on the same prompts
-and compare what they report."""
+"""Shared helpers of the parity tests: drive the JAX reference engine and
+the port's engine on the same prompts and compare what they report
+(``test_torch_engine*.py``), and the cross-attention archs' frontends and
+open gates (``test_torch_decode.py``, ``test_torch_cross.py``)."""
 import dataclasses
 
 import numpy as np
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from repro.configs import ARCHS, reduced
 from repro.core.policies import POLICIES as REF_POLICIES
@@ -76,3 +78,21 @@ def assert_same_engines(ref_eng, eng):
     assert len(ref_eng.device) == len(eng.device)
     assert torch.equal(torch.from_numpy(np.array(ref_eng.caches["lengths"])),
                        eng.caches["lengths"].cpu())
+
+
+def open_xgates(params, value=0.5):
+    """The reference initialises each cross-attention gate ``xgate`` to 0,
+    which shuts llama-vision's cross path; set it non-zero so that the
+    parity holds that path too."""
+    segs = [dict(seg, xgate=jnp.full_like(seg["xgate"], value))
+            if "xgate" in seg else seg for seg in params["segments"]]
+    return {**params, "segments": segs}
+
+
+def frontend_for(cfg, b, seed=0):
+    """numpy-seeded (B, N, d) frontend states, or None for an arch that
+    reads none."""
+    if not cfg.n_frontend_tokens:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
