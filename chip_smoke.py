@@ -24,7 +24,13 @@ MoE layer's decode rows bit-identical whatever the rest of the batch holds
 (phase 9), and runs full-width llama-3.2-vision-11b (10 of 40 layers, 6656
 patch tokens) and whisper-large-v3 (32 + 32 layers, 1536 frames) through
 prefill and decode, held against their full forward in f32, then in bf16
-(phase 10).  Each main path runs with every kernel's launch count
+(phase 10).  Phase 11 trains: ten steps of the port's ``make_train_step``
+(bf16 compute, two microbatches, remat, AdamW) on full-width granite-3-8b
+(8 of 40 layers) and mamba2-2.7b (16 of 64 layers, the SSD scan's forward
+on the kernel under autograd), then holds the scan's gradients against the
+plain scan's, a reduced train step of every arch against the CPU, and a
+``ValetCheckpointer`` round trip with a resumed step.  Each main path runs
+with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -1442,6 +1448,343 @@ def phase_cross():
                what="all 32 encoder + 32 decoder layers, 1536 frames")
 
 
+# --------------------------------------------------------------------------
+# Phase 11: training
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 10
+TRAIN_SEQ = 1024
+TRAIN_MICRO, TRAIN_MB = 2, 4          # a global batch of 8 sequences
+# the peak learning rate of the full-width runs: the order of the published
+# rates at these sizes.  The reference's reduced-model test uses 1e-3; at
+# full width that spiked both models' loss right after the warmup, and
+# mamba2's last loss ended above its first (PERF.md, phase 11 findings)
+TRAIN_LR = 3e-4
+GRAD_CHECK_TOL = 1e-4                 # of each gradient leaf's largest entry
+MEMORY_LIMIT = 80e9
+
+
+def train_config(dtype=torch.bfloat16, **adamw):
+    from repro_torch import optim
+    from repro_torch.train import TrainConfig
+    adamw = adamw or dict(lr=TRAIN_LR, warmup_steps=5, total_steps=60)
+    return TrainConfig(microbatches=TRAIN_MICRO, compute_dtype=dtype,
+                       grad_dtype=torch.float32, adamw=optim.AdamWConfig(**adamw))
+
+
+def model_flops(cfg, params, tokens):
+    """Model FLOPs of one training step over ``tokens`` tokens: 6 N T, N the
+    parameters the forward multiplies (all but the input embedding table,
+    which it gathers), plus attention's 12 L Hq D S per token (forward and
+    backward over every key, PaLM's count).  The SSD scan's mixing is left
+    out."""
+    from repro_torch.models import transformer as T
+    n = sum(t.numel() for t in _leaves(params))
+    n_mm = n - (0 if cfg.tie_embeddings else params["embed"].numel())
+    attn_layers = sum(seg.count for seg in T.segments(cfg) if seg.kind != "ssm")
+    attn = 12 * attn_layers * cfg.n_heads * cfg.resolved_head_dim * TRAIN_SEQ
+    return n, (6 * n_mm + attn) * tokens
+
+
+def profile_step(fn):
+    """One call of ``fn`` under torch.profiler (device activity only): (its
+    result, device busy ms, kernel launches, the kernels by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: -e.self_device_time_total)
+    return (out, sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev), ev)
+
+
+def train_full(name, cfg, seed):
+    """``TRAIN_STEPS`` steps of the port's ``make_train_step`` on ``cfg`` at
+    full width: bf16 compute, f32 grads and masters, remat, AdamW with the
+    reference's ``test_loss_decreases`` warmup and decay at ``TRAIN_LR``,
+    data from ``TrainDataset``.
+    Held: finite losses and grad norms, every parameter leaf moved, the last
+    loss below the first, peak allocated memory under 80 GB.  The last step
+    runs under the profiler (device time, launches) and is left out of the
+    wall median."""
+    from repro_torch import optim
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.data import DataConfig, TrainDataset
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, dtype=torch.float32, device="cuda")
+    tokens = TRAIN_MICRO * TRAIN_MB * TRAIN_SEQ
+    n, flops = model_flops(cfg, params, tokens)
+    log(f"  {name}: {cfg.n_layers} layers at full width, {n / 1e9:.3f} B params; "
+        f"{TRAIN_MICRO} microbatches of {TRAIN_MB} x {TRAIN_SEQ}, bf16 compute, f32 "
+        f"grads, remat; model FLOPs {flops:.3e} per step")
+    ctx = T.ParallelCtx(remat=True, compute_dtype=torch.bfloat16)
+    step = make_train_step(cfg, ctx, train_config())
+    state = optim.init(params)
+    ds = TrainDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_MICRO * TRAIN_MB, seed=seed))
+    marks = [t.reshape(-1)[:64].clone() for t in tree_flatten(params)[0]]
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        toks, labels = (torch.as_tensor(a, device="cuda").reshape(
+            TRAIN_MICRO, TRAIN_MB, TRAIN_SEQ) for a in next(ds))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = lambda: step(params, state, toks, labels)
+        if i == TRAIN_STEPS - 1:
+            ssd_before = ssd.ssd_scan.launches
+            (params, state, m), busy, launches, kernels = profile_step(run)
+            ssd_step = ssd.ssd_scan.launches - ssd_before
+        else:
+            params, state, m = run()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+        log(f"    step {i}: loss {losses[-1]:.4f} grad norm {norms[-1]:.4f} lr "
+            f"{float(m['lr']):.3e} wall {1e3 * walls[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.median(walls[1:-1]))
+    moved = sum(not torch.equal(a, t.reshape(-1)[:64])
+                for a, t in zip(marks, tree_flatten(params)[0]))
+    log(f"  {name}: step wall {1e3 * wall:.1f} ms (median of steps 1-{TRAIN_STEPS - 2}); "
+        f"profiled step device busy {busy:.1f} ms ({100 * busy / 1e3 / wall:.1f}% "
+        f"of the median wall; {1e3 * walls[-1]:.1f} ms under the profiler), "
+        f"{launches} kernel launches, "
+        f"{ssd_step} SSD scan launches; {tokens / wall:.0f} tokens/s; model FLOPs "
+        f"{flops / wall / 1e12:.1f} TFLOP/s = {100 * flops / wall / PEAK_FLOPS[torch.bfloat16]:.1f}% "
+        f"of 989 (by device busy: {100 * flops / (busy / 1e3) / PEAK_FLOPS[torch.bfloat16]:.1f}%); "
+        f"peak allocated {peak / 1e9:.2f} GB; {moved} of {len(marks)} parameter leaves moved")
+    for e in kernels[:8]:
+        key = e.key.replace("void ", "").replace("at::native::", "").replace("std::", "")
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d} calls  {key[:130]}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"{name} training: non-finite loss or grad norm")
+    if moved != len(marks):
+        fail(f"{name} training: {len(marks) - moved} parameter leaves did not move")
+    if not losses[-1] < losses[0]:
+        fail(f"{name} training: loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    if not peak < MEMORY_LIMIT:
+        fail(f"{name} training: peak allocated {peak / 1e9:.2f} GB")
+    del params, state, m
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """``ssm_forward`` with ``ssd_chunked`` in place of the kernel's op, so
+    that autograd differentiates the plain scan directly."""
+    from repro_torch.models import ssm
+    real = ssm.ssd_scan_op
+
+    def plain(x, dt, A, B_mat, C_mat, *, chunk):
+        zeros = torch.zeros((x.shape[2],), dtype=torch.float32, device=x.device)
+        return ssm.ssd_chunked(x, dt, A, B_mat, C_mat, zeros, chunk)
+    ssm.ssd_scan_op = plain
+    try:
+        yield
+    finally:
+        ssm.ssd_scan_op = real
+
+
+def loss_and_grads(params, cfg, ctx, toks, labels):
+    from repro_torch.bridge import tree_flatten, tree_unflatten
+    from repro_torch.models import transformer as T
+    leaves, structure = tree_flatten(params)
+    leaves = [a.detach().requires_grad_() for a in leaves]
+    loss = T.lm_loss(tree_unflatten(structure, leaves), toks, labels, cfg, ctx)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def ssd_grad_check(seed=11):
+    """Loss and every gradient of 2 full-width mamba2 layers in f32 (TF32
+    off) with the scan on the kernel's ``SSDScan`` against the same loss
+    with ``ssd_chunked`` differentiated directly on the card."""
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import transformer as T
+    cfg = replace(ARCHS["mamba2-2.7b"], n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, dtype=torch.float32, device="cuda")
+    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    toks, labels = (torch.as_tensor(rng.integers(0, cfg.vocab, (2, TRAIN_SEQ)),
+                                    device="cuda") for _ in range(2))
+    before = ssd.ssd_scan.launches
+    lk, gk = loss_and_grads(params, cfg, ctx, toks, labels)
+    launched = ssd.ssd_scan.launches - before
+    with plain_scan():
+        lp, gp = loss_and_grads(params, cfg, ctx, toks, labels)
+    if ssd.ssd_scan.launches - before != launched or launched != cfg.n_layers:
+        fail(f"ssd gradient check: {launched} kernel launches for {cfg.n_layers} layers")
+    names = ["/".join(map(str, k)) for k in _paths(params)]
+    gaps = [(max_err(a, b) / max(float(b.abs().max()), 1e-30), nm)
+            for a, b, nm in zip(gk, gp, names)]
+    worst, where = max(gaps)
+    loss_gap = abs(float(lk) - float(lp)) / abs(float(lp))
+    ssm_gaps = ", ".join(f"{nm.split('/')[-1]} {g:.2e}" for g, nm in gaps if "/ssm/" in nm)
+    log(f"  ssd gradient check (mamba2, 2 full-width layers, f32, S {TRAIN_SEQ}, "
+        f"batch 2): loss {float(lk):.6f} against {float(lp):.6f} (rel {loss_gap:.2e}); "
+        f"worst gradient gap {worst:.3e} of its leaf's largest entry ({where}); "
+        f"SSM leaves: {ssm_gaps} (limit {GRAD_CHECK_TOL})")
+    if not (worst <= GRAD_CHECK_TOL and loss_gap <= GRAD_CHECK_TOL):
+        fail(f"ssd gradient check: gap {worst:.3e} at {where}, loss {loss_gap:.3e}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+
+
+def _paths(tree, prefix=()):
+    """Key paths of ``tree``'s leaves, in ``tree_flatten`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
+    else:
+        yield prefix
+
+
+def train_reduced():
+    """One reduced f32 train step of every arch (2 microbatches, remat on)
+    on the card against the CPU: loss and grad norm within 1e-5, first
+    moments within 1e-4 of each leaf's largest entry, updated params within
+    1e-3 lr where |g| >= 100 eps and within 2 lr below (the step moves an
+    entry by lr g / (|g| + eps), which a rounding of a gradient near eps
+    moves by up to lr)."""
+    from repro_torch import optim
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+    lr = 1e-3
+    ctx = T.ParallelCtx(remat=True, q_block=8, kv_block=8, loss_chunk=8)
+    worst = {}
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+        open_gates(params)
+        rng = np.random.default_rng(0)
+        toks, labels = (torch.as_tensor(rng.integers(0, cfg.vocab, (2, 2, 24)))
+                        for _ in range(2))
+        fe = None
+        if cfg.n_frontend_tokens:
+            fe = torch.randn((2, 2, cfg.n_frontend_tokens, cfg.d_model),
+                             generator=torch.Generator().manual_seed(1))
+        step = make_train_step(cfg, ctx, train_config(
+            torch.float32, lr=lr, warmup_steps=0), has_frontend=fe is not None)
+        outs = []
+        for dev in ("cpu", "cuda"):
+            p = to_device(params, dev)
+            args = [p, optim.init(p), toks.to(dev), labels.to(dev)]
+            outs.append(step(*args, *([] if fe is None else [fe.to(dev)])))
+        (cp, cs, cm), (gp, gs, gm) = outs
+        gaps = [abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k]))
+                for k in ("loss", "grad_norm")]
+        # each entry's gap over its tolerance (<= 1 holds)
+        p_gap = max(float(((b.cpu() - a).abs() / torch.where(
+            mu.abs() / 0.1 >= 1e-6, 1e-3 * lr, 2 * lr)).max())
+            for a, b, mu in zip(tree_flatten(cp)[0], tree_flatten(gp)[0],
+                                tree_flatten(cs.mu)[0]))
+        m_gap = max(max_err(a, b.cpu()) / max(float(a.abs().max()), 1e-30)
+                    for a, b in zip(tree_flatten(cs.mu)[0], tree_flatten(gs.mu)[0]))
+        worst[name] = (max(gaps), p_gap, m_gap)
+        if not (max(gaps) <= 1e-5 and p_gap <= 1 and m_gap <= 1e-4):
+            fail(f"{name} reduced train step: CUDA differs from CPU (loss/norm "
+                 f"{max(gaps):.2e}, params {p_gap:.2e} of their tolerance, "
+                 f"moments {m_gap:.2e})")
+    log("  reduced train step, CUDA against CPU (loss/grad norm rel, params' worst "
+        "gap over its tolerance, first moment of leaf max): " + "; ".join(
+            f"{n} {a:.1e}/{b:.1e}/{c:.1e}" for n, (a, b, c) in worst.items()))
+
+
+def bits(t):
+    """A tensor's bytes as integers of its element size (NaN-safe equality)."""
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def checkpoint_round_trip(seed=12):
+    """A (f32 masters, bf16 compute copy, AdamW state) snapshot of one
+    full-width mamba2 layer (vocab cut to 4096: ~0.85 GB) through
+    ``ValetCheckpointer`` under a temporary directory: staging time, bytes
+    equal after ``restore_tensors``, and a step resumed from the restored
+    state against the uninterrupted step (bit for bit if two uninterrupted
+    steps agree bit for bit, else within f32 tolerance)."""
+    import shutil
+    import tempfile
+    from repro_torch import optim
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.models import transformer as T
+    from repro_torch.train import ValetCheckpointer, cast_for_compute, make_train_step
+    cfg = replace(ARCHS["mamba2-2.7b"], n_layers=1, vocab=4096)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, dtype=torch.float32, device="cuda")
+    step = make_train_step(cfg, T.ParallelCtx(remat=True, compute_dtype=torch.bfloat16),
+                           train_config(lr=TRAIN_LR, warmup_steps=0))
+    rng = np.random.default_rng(seed)
+    batches = [torch.as_tensor(rng.integers(0, cfg.vocab, (TRAIN_MICRO, 2, TRAIN_SEQ)),
+                               device="cuda") for _ in range(4)]
+    p1, s1, _ = step(params, optim.init(params), batches[0], batches[1])
+    tree = {"params": p1, "compute": cast_for_compute(p1, torch.bfloat16), "opt": s1}
+    leaves = tree_flatten(tree)[0]
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    d = tempfile.mkdtemp(prefix="valet_ckpt_")
+    try:
+        ckpt = ValetCheckpointer(d, replicas=2, keep=2)
+        staged = ckpt.save(1, tree)
+        t0 = time.perf_counter()
+        ckpt.close()
+        written = time.perf_counter() - t0
+        got_step, got = ValetCheckpointer(d, replicas=2).restore_tensors(
+            "cuda", tree_like=tree)
+        got_leaves = tree_flatten(got)[0]
+        same = got_step == 1 and len(got_leaves) == len(leaves) and all(
+            a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+            for a, b in zip(leaves, got_leaves))
+        dtypes = sorted({str(t.dtype).replace("torch.", "") for t in leaves})
+        log(f"  checkpoint: {len(leaves)} leaves ({', '.join(dtypes)}), "
+            f"{n_bytes / 1e9:.3f} GB; save() staged it in {1e3 * staged:.1f} ms "
+            f"({n_bytes / staged / 1e9:.2f} GB/s to host), the writer took "
+            f"{1e3 * written:.1f} ms more for 2 replicas; restore bit-equal: {same}")
+        if not same:
+            fail("checkpoint: the restored snapshot differs from the saved one")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    again = [step(p1, s1, batches[2], batches[3]) for _ in range(2)]
+    resumed = step(got["params"], got["opt"], batches[2], batches[3])
+    flat = [tree_flatten((p, s, m["loss"]))[0] for p, s, m in again + [resumed]]
+    deterministic = all(torch.equal(bits(a), bits(b)) for a, b in zip(flat[0], flat[1]))
+    gap = max(max_err(a, b) / max(float(a.abs().max()), 1e-30)
+              for a, b in zip(flat[0], flat[2]))
+    exact = all(torch.equal(bits(a), bits(b)) for a, b in zip(flat[0], flat[2]))
+    log(f"  resume: two uninterrupted steps agree bit for bit: {deterministic}; the "
+        f"step from the restored state against the uninterrupted one: bit-equal "
+        f"{exact}, worst gap {gap:.2e} of a leaf's largest entry")
+    if not (exact if deterministic else gap <= 1e-5):
+        fail(f"checkpoint: the resumed step differs (gap {gap:.2e})")
+    del params, p1, s1, tree, got, again, resumed
+    torch.cuda.empty_cache()
+
+
+def phase_training():
+    from repro_torch.configs import ARCHS, replace
+    log("phase 11: training (make_train_step: bf16 compute, microbatches, AdamW), "
+        f"{TRAIN_STEPS} steps at full width; f32 checks with TF32 off")
+    train_full("granite-3-8b", replace(ARCHS["granite-3-8b"], n_layers=8), seed=8)
+    train_full("mamba2-2.7b", replace(ARCHS["mamba2-2.7b"], n_layers=16), seed=9)
+    with off_path():
+        ssd_grad_check()
+        train_reduced()
+        checkpoint_round_trip()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1457,7 +1800,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1496,7 +1839,7 @@ def main():
         phase_reduced()
         log(f"  phase 3: {time.perf_counter() - t0:.1f} s wall")
 
-    # phases 4-10 are the main paths.  Each runs with every launch count and
+    # phases 4-11 are the main paths.  Each runs with every launch count and
     # every count of plain-version calls on CUDA tensors set to 0 just
     # before it, and read just after; the profiles and checks a phase runs
     # beside its serving runs are off the path (``off_path``)
@@ -1519,7 +1862,12 @@ def main():
                   (8, "multi-tenant granite-3-8b", phase_tenants, ("paged", "flash")),
                   (9, "deepseek-moe-16b", phase_deepseek, ("paged", "flash")),
                   (10, "llama-3.2-vision-11b and whisper-large-v3", phase_cross,
-                   ("paged", "flash"))]
+                   ("paged", "flash")),
+                  # training keeps attention on the differentiable blockwise
+                  # path, as the reference does (neither package has a flash
+                  # backward), so granite's steps launch none of the three
+                  # kernels; mamba2's launch the SSD scan forward
+                  (11, "training granite-3-8b and mamba2-2.7b", phase_training, ("ssd",))]
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:
         if num not in phases:

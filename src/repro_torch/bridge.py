@@ -8,6 +8,9 @@ weights' dtype: ``F32_LEAVES``); ``to_numpy`` is its inverse.  Leaves are
 read through ``np.asarray``, so anything that converts to a numpy array is
 accepted.
 bfloat16 arrays (numpy's ``bfloat16`` extension dtype) cross bit for bit.
+An optimizer state crosses with ``opt_state_to_torch`` and
+``opt_state_to_numpy``.  ``tree_flatten`` and ``tree_unflatten`` order the
+leaves as ``jax.tree.flatten`` does.
 """
 from __future__ import annotations
 
@@ -32,6 +35,56 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+class _Leaf:
+    """The place of a leaf in a ``tree_flatten`` structure."""
+
+
+_LEAF = _Leaf()
+
+
+def tree_flatten(tree: Any):
+    """(leaves, structure) in ``jax.tree.flatten``'s order: dict keys sorted,
+    lists and tuples in order, NamedTuples by field; ``None`` holds no
+    leaf.  ``tree_unflatten(structure, leaves)`` inverts it."""
+    leaves = []
+    return leaves, _flatten_into(tree, leaves)
+
+
+# module-level recursion, not a nested closure: a closure that calls itself
+# is a reference cycle, which would keep the leaves (a step's parameters,
+# moments and gradients) alive until the garbage collector runs
+def _flatten_into(t, leaves):
+    if isinstance(t, dict):
+        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):        # NamedTuple
+        return type(t)(*(_flatten_into(v, leaves) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten_into(v, leaves) for v in t)
+    if t is None:
+        return None
+    leaves.append(t)
+    return _LEAF
+
+
+def tree_unflatten(structure: Any, leaves) -> Any:
+    """The tree of ``structure`` (from ``tree_flatten``) holding ``leaves``."""
+    it = iter(leaves)
+    out = _unflatten_from(structure, it)
+    if next(it, _LEAF) is not _LEAF:
+        raise ValueError("more leaves than the structure holds")
+    return out
+
+
+def _unflatten_from(t, it):
+    if isinstance(t, dict):
+        return {k: _unflatten_from(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_unflatten_from(v, it) for v in t))
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten_from(v, it) for v in t)
+    return next(it) if t is _LEAF else t
 
 
 def _leaf_to_torch(x, device, dtype) -> torch.Tensor:
@@ -69,3 +122,21 @@ def to_numpy(tree: Any) -> Any:
             t = t.float()
         return t.numpy()
     return tree_map(leaf, tree)
+
+
+def opt_state_to_torch(state: Any, device="cuda"):
+    """An AdamW state (``step``, ``mu``, ``nu``; the reference's or a numpy
+    one) -> the port's ``AdamWState``: moments through ``to_torch``, step as
+    an int32 scalar tensor."""
+    from repro_torch.optim import AdamWState   # optim imports this module
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step, to_torch(state.mu, device),
+                      to_torch(state.nu, device))
+
+
+def opt_state_to_numpy(state: Any):
+    """The port's ``AdamWState`` -> (step as an int32 numpy scalar, moments
+    through ``to_numpy``), as an ``AdamWState`` of numpy leaves."""
+    return type(state)(np.asarray(int(state.step), dtype=np.int32),
+                       to_numpy(state.mu), to_numpy(state.nu))

@@ -25,6 +25,13 @@ chunk states, state passing, chunk outputs) over scratch buffers that the
 wrapper allocates; with bf16 x/B/C their products run on the tensor cores,
 with f32 inputs as f32 FMAs.  ``ssd_scan.launches`` counts wrapper calls
 that ran the kernel (one per scan, not one per pass).
+
+On the card the scan is differentiable through ``SSDScan``, a
+``torch.autograd.Function``: its forward is the kernel, its backward
+recomputes the plain scan (``ssd_chunked`` with D = 0) under autograd and
+returns that graph's gradients.  The reference trains through the same
+``jnp`` scan (it has no backward kernel), so the card's gradients are the
+reference's math.  On the CPU the plain version runs with its own autograd.
 """
 from __future__ import annotations
 
@@ -74,13 +81,8 @@ def _check(x, dt, A, B_mat, C_mat, chunk):
                          f"{MAX_DIM}, got P={p} N={n}")
 
 
-def ssd_scan(x, dt, A, B_mat, C_mat, chunk):
-    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B/C: (B,S,G,N).
-
-    Returns y (B,S,H,P) f32, h_final (B,H,P,N) f32."""
-    _check(x, dt, A, B_mat, C_mat, chunk)
-    if not x.is_cuda:
-        return ssd_scan_plain(x, dt, A, B_mat, C_mat, chunk)
+def _launch(x, dt, A, B_mat, C_mat, chunk):
+    """Run the kernel on checked CUDA tensors: (y, h_final)."""
     b, s, h, p = x.shape
     g, n = B_mat.shape[2], B_mat.shape[3]
     nc = s // chunk
@@ -102,6 +104,53 @@ def ssd_scan(x, dt, A, B_mat, C_mat, chunk):
     cuda_lib.check(err, "ssd_scan")
     ssd_scan.launches += 1
     return y, h_final
+
+
+class SSDScan(torch.autograd.Function):
+    """``SSDScan.apply(forward, x, dt, A, B_mat, C_mat, chunk)``: (y,
+    h_final) from ``forward(x, dt, A, B_mat, C_mat, chunk)``, with the
+    gradients of the plain scan.  The backward recomputes ``ssd_chunked``
+    (D = 0) on detached copies of the saved inputs and differentiates it;
+    each gradient comes back in its input's dtype, and an unused h_final
+    passes no cotangent.  ``ssd_scan`` passes the kernel as ``forward``; a
+    test may pass the plain version to check the backward on the CPU."""
+
+    @staticmethod
+    def forward(ctx, forward, x, dt, A, B_mat, C_mat, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_mat, C_mat)
+        ctx.chunk = chunk
+        return forward(x, dt, A, B_mat, C_mat, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        # imported here: repro_torch.models.ssm imports this module (via ops)
+        from repro_torch.models.ssm import ssd_chunked
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[1:6])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            zeros = torch.zeros((inputs[0].shape[2],), dtype=torch.float32,
+                                device=inputs[0].device)
+            pairs = [(out, cot) for out, cot in
+                     zip(ssd_chunked(*inputs, zeros, ctx.chunk), (gy, gh))
+                     if cot is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wanted, [c for _, c in pairs],
+                allow_unused=True))
+        return (None, *(next(grads) if t.requires_grad else None
+                        for t in inputs), None)
+
+
+def ssd_scan(x, dt, A, B_mat, C_mat, chunk):
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B/C: (B,S,G,N).
+
+    Returns y (B,S,H,P) f32, h_final (B,H,P,N) f32.  On a CUDA tensor the
+    kernel runs, differentiable through ``SSDScan``."""
+    _check(x, dt, A, B_mat, C_mat, chunk)
+    if not x.is_cuda:
+        return ssd_scan_plain(x, dt, A, B_mat, C_mat, chunk)
+    return SSDScan.apply(_launch, x, dt, A, B_mat, C_mat, chunk)
 
 
 ssd_scan.launches = 0

@@ -5,7 +5,8 @@
 * ``blockwise_attention`` — flash-style online softmax over KV blocks in
   plain PyTorch.  Never materializes (Sq, Sk); windowed attention visits
   only the statically known band of KV blocks.  This is the full-forward
-  path (``transformer.forward_hidden``); prefill goes through the
+  path (``transformer.forward_hidden``) and the training path (each q
+  block is recomputed in the backward); prefill goes through the
   hand-written kernel (``repro_torch.kernels.flash_attention``).
 * ``decode_partial`` / ``combine_partials`` — flash-decoding: a partial
   softmax over a slice of the KV working set plus an exact combine.
@@ -17,6 +18,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.layers import records_grad
 
 NEG_INF = -1e30
 
@@ -101,6 +105,16 @@ def blockwise_attention(q, k, v, *, causal=True, window=0, q_block=512,
     return out[:, :sq0] if qpad else out
 
 
+def _per_q_block(body, nq, *inputs):
+    """[body(qi) for each q block].  Under autograd each block is
+    checkpointed, as the reference's ``jax.checkpoint`` per q block: the
+    backward then recomputes a block's scores instead of keeping every
+    block's (nq x nk buffers of them in the online-softmax loop)."""
+    if records_grad(*inputs):
+        return [checkpoint(body, qi, use_reentrant=False) for qi in range(nq)]
+    return [body(qi) for qi in range(nq)]
+
+
 def _blockwise_padded(q, k, v, *, causal, window, q_block, kv_block,
                       q_offset, kv_len):
     b, sq, hq, d = q.shape
@@ -110,13 +124,13 @@ def _blockwise_padded(q, k, v, *, causal, window, q_block, kv_block,
     dev = q.device
     scale = 1.0 / math.sqrt(d)
     qf = _fold_gqa(q, n_kv)                             # (B,Sq,K,G,D)
-    outs = []
 
     if window > 0 and causal:
         # Static band: ceil(window / kv_block) blocks behind + the q block.
         band = (window + kv_block - 1) // kv_block * kv_block + q_block
         band = min(band, sk)
-        for qi in range(nq):
+
+        def band_body(qi):
             qstart = qi * q_block
             qb = qf[:, qstart:qstart + q_block]
             kstart = min(max(qstart + q_block - band, 0), sk - band)
@@ -130,12 +144,15 @@ def _blockwise_padded(q, k, v, *, causal, window, q_block, kv_block,
             logits = torch.where(mask[None, None, None], logits, NEG_INF)
             p = torch.softmax(logits, dim=-1)
             out = torch.einsum("bkgqt,btkd->bqkgd", p, vb.float())
-            outs.append(out.to(q.dtype))
+            return out.to(q.dtype)
+
+        outs = _per_q_block(band_body, nq, q, k, v)
         return torch.cat(outs, dim=1).reshape(b, sq, hq, d)
 
     # Full (causal or bidirectional): online softmax over all KV blocks.
     nk = sk // kv_block
-    for qi in range(nq):
+
+    def full_body(qi):
         qstart = qi * q_block
         qb = qf[:, qstart:qstart + q_block].float()
         qpos = qstart + torch.arange(q_block, device=dev) + q_offset
@@ -158,7 +175,9 @@ def _blockwise_padded(q, k, v, *, causal, window, q_block, kv_block,
                 "bkgqt,btkd->bkgqd", p, vb.float())
             m = m_new
         out = acc / l.clamp(min=1e-20)[..., None]           # (B,K,G,qb,D)
-        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))  # (B,qb,K,G,D)
+        return out.permute(0, 3, 1, 2, 4).to(q.dtype)       # (B,qb,K,G,D)
+
+    outs = _per_q_block(full_body, nq, q, k, v)
     return torch.cat(outs, dim=1).reshape(b, sq, hq, d)
 
 

@@ -19,6 +19,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def records_grad(*tensors) -> bool:
+    """True when autograd records an op on any of ``tensors``: the
+    checkpoints of training (remat) apply only then, so serving never
+    pays for them."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def normal_(t: torch.Tensor, generator: torch.Generator,
             scale: float = 0.02) -> torch.Tensor:
     """Fill ``t`` in place with N(0, scale^2) drawn in f32 from ``generator``

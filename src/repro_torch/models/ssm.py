@@ -8,8 +8,10 @@ chunks.  ``ssd_chunked`` is the plain PyTorch form (the oracle, and the
 kernel's plain version through ``kernels/ssd_scan.py``); ``ssm_forward``
 runs the core scan through ``kernels.ops.ssd_scan_op``, which launches the
 hand-written CUDA kernel (``csrc/ssd_scan.cu``) on a CUDA tensor, then adds
-the D skip.  Decode (``ssm_decode_step``) keeps O(1) state per layer: the
-(H, P, N) SSD state and a (K-1)-deep conv ring; it has no kernel.
+the D skip.  The kernel also runs under autograd (training): its backward
+recomputes ``ssd_chunked`` and differentiates it (``SSDScan``).  Decode
+(``ssm_decode_step``) keeps O(1) state per layer: the (H, P, N) SSD state
+and a (K-1)-deep conv ring; it has no kernel.
 
 Every dtype cast of the reference is kept: the causal conv sums in the
 input's dtype and applies SiLU in f32, ``dt`` is f32, and y is cast to the
@@ -134,7 +136,10 @@ def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False):
     B_mat = xbc[..., d_inner:d_inner + g * n].reshape(b, s, g, n)
     C_mat = xbc[..., d_inner + g * n:].reshape(b, s, g, n)
     dt = _softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    # f32 for the kernel: a bf16 compute copy (``cast_for_compute`` casts
+    # the stacked A_log) gives a bf16 A, which the reference promotes
+    # exactly to f32 in ``dt * A``
+    A = -torch.exp(params["A_log"]).float()
 
     # padded steps have dt = 0: they neither add to nor decay the state, so
     # the final state is exact for any prompt length

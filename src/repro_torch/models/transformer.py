@@ -1,4 +1,4 @@
-"""Model assembly: segment-based layer stacks (forward only, PyTorch).
+"""Model assembly: segment-based layer stacks, forward and loss (PyTorch).
 
 An architecture is a list of ``Segment``s — homogeneous runs of layers whose
 parameters are stacked on a leading layer axis, as in the reference (the
@@ -10,9 +10,12 @@ segment lists.
 Every kind of the reference is here: ``attn`` (dense, sliding-window, and
 with a SwiGLU, GELU or MoE FFN), ``ssm`` (mamba2), ``hybrid`` (hymba's
 parallel attention and SSD heads), ``xattn`` (llama-vision's gated
-cross-attention layers), ``enc`` and ``dec`` (whisper).  There is no mesh:
-sharding comes with the multi-device launch layer (ROADMAP Queue 1
-item 13).
+cross-attention layers), ``enc`` and ``dec`` (whisper).  ``lm_loss`` is the
+training objective: the mean next-token NLL over sequence chunks, with
+each layer and each loss chunk recomputed in the backward when
+``ParallelCtx.remat`` is set.  There is no mesh: sharding (and the
+vocab-sharded loss) comes with the multi-device launch layer (ROADMAP
+Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -21,14 +24,15 @@ from dataclasses import dataclass
 from typing import Any, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.bridge import tree_map
+from repro_torch.bridge import tree_flatten, tree_unflatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
-                                       rms_norm, swiglu)
+                                       records_grad, rms_norm, swiglu)
 
 
 # --------------------------------------------------------------------------
@@ -38,7 +42,8 @@ from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
 @dataclass(frozen=True)
 class ParallelCtx:
     """Model-execution knobs (single device; no mesh yet)."""
-    remat: bool = True                    # unread until training is ported
+    remat: bool = True          # recompute each layer and loss chunk in the
+                                # backward (read only under autograd)
     q_block: int = 512
     kv_block: int = 512
     loss_chunk: int = 256
@@ -326,15 +331,32 @@ def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
     return x, aux
 
 
+def _unstack(p_stack, n):
+    """The ``n`` layers of a stacked segment tree, as views.  Their
+    gradients flow back to the stack as one ``stack`` per leaf (indexing
+    each layer instead would make each layer's backward write a
+    zero-filled gradient of the whole stack)."""
+    leaves, structure = tree_flatten(p_stack)
+    cols = [a.unbind(0) for a in leaves]
+    return [tree_unflatten(structure, [c[i] for c in cols]) for i in range(n)]
+
+
 def run_segments(seg_params, segs, x, cfg, ctx, frontend=None,
                  positions=None, attention=None):
-    """Apply all segments, layer by layer over the stacked parameters."""
+    """Apply all segments, layer by layer over the stacked parameters.
+    With ``ctx.remat`` under autograd each layer is checkpointed, as the
+    reference's ``jax.checkpoint`` of its scan body: the backward keeps
+    only each layer's input and recomputes the rest."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_stack, seg in zip(seg_params, segs):
-        for i in range(seg.count):
-            p_layer = tree_map(lambda a: a[i], p_stack)
-            x, a = apply_layer(p_layer, x, seg, cfg, ctx, frontend=frontend,
-                               positions=positions, attention=attention)
+        remat = ctx.remat and records_grad(x, *tree_flatten(p_stack)[0])
+        for p_layer in _unstack(p_stack, seg.count):
+            def layer(x, p_layer=p_layer, seg=seg):
+                return apply_layer(p_layer, x, seg, cfg, ctx,
+                                   frontend=frontend, positions=positions,
+                                   attention=attention)
+            x, a = (checkpoint(layer, x, use_reentrant=False) if remat
+                    else layer(x))
             aux_total = aux_total + a
     return x, aux_total
 
@@ -409,3 +431,39 @@ def prefill_logits(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
     h, _ = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
     w = unembed_matrix(params, cfg).to(h.dtype)
     return mask_vocab_pad(matmul(h[:, -1], w).float(), cfg)
+
+
+def lm_loss(params, tokens, labels, cfg: ArchConfig, ctx: ParallelCtx,
+            frontend=None):
+    """Mean next-token cross-entropy plus the MoE aux loss (an f32 scalar).
+
+    Never holds (B, S, V) logits: the sequence is taken in
+    ``ctx.loss_chunk`` slices, each chunk's logits formed as the reference
+    forms them (the product in the hidden states' dtype, then f32) with the
+    padded vocab tail masked, and the chunk recomputed in the backward
+    under ``ctx.remat``.  Labels ``< 0`` are left out of the mean."""
+    h, aux = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
+    w = unembed_matrix(params, cfg).to(h.dtype)
+    s = h.shape[1]
+    chunk = min(ctx.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"loss chunk {chunk}")
+
+    def chunk_nll(hs, ls):
+        logits = mask_vocab_pad(matmul(hs, w).float(), cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, ls.clamp(min=0).long()[..., None])[..., 0]
+        valid = ls >= 0
+        return torch.where(valid, lse - picked, 0.0).sum(), valid.sum()
+
+    remat = ctx.remat and records_grad(h, w)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(0, s, chunk):
+        hs, ls = h[:, i:i + chunk], labels[:, i:i + chunk]
+        nll, n = (checkpoint(chunk_nll, hs, ls, use_reentrant=False) if remat
+                  else chunk_nll(hs, ls))
+        total = total + nll
+        count = count + n
+    return total / torch.clamp(count, min=1) + aux

@@ -270,3 +270,94 @@ def test_cuda_kernels_are_bitwise_repeatable(cuda, dtype):
     for case in ("granite", "long", "some-empty"):
         args = on_card(paged_rows(*PAGED_SPLIT_CASES[case]), cuda, dtype, dtype)
         assert torch.equal(pa.paged_attention(*args), pa.paged_attention(*args)), case
+
+
+def ssd_grad_inputs(cuda, b, s, h, p, g, n, dtype, seed=10):
+    rng = np.random.default_rng(seed)
+    td = TORCH[dtype]
+    return [torch.from_numpy(rand(seed, (b, s, h, p))).to(cuda, td),
+            torch.from_numpy(np.logaddexp(rand(seed + 1, (b, s, h)) - 2, 0)
+                             .astype(np.float32)).to(cuda),
+            torch.from_numpy(-np.exp(rng.standard_normal(h)).astype(np.float32)
+                             ).to(cuda),
+            torch.from_numpy(rand(seed + 2, (b, s, g, n))).to(cuda, td),
+            torch.from_numpy(rand(seed + 3, (b, s, g, n))).to(cuda, td)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 1024, 80, 64, 1, 128, 256),      # mamba2-2.7b's training shape
+    (1, 77, 4, 64, 1, 128, 77)])         # one ragged chunk
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_gradients_match_plain_autograd(cuda, b, s, h, p, g, n,
+                                                      chunk, dtype):
+    """On a CUDA tensor under autograd the forward is the kernel (one
+    launch, no plain forward) and the gradients of x, dt, A, B and C,
+    through ``SSDScan``'s recomputing backward, equal differentiating the
+    plain scan on the card (same graph and cotangents: 1e-5 in f32; bf16
+    gradients are rounded once to their inputs' dtype: one bf16 step)."""
+    kernel_in = [t.requires_grad_() for t in
+                 ssd_grad_inputs(cuda, b, s, h, p, g, n, dtype)]
+    plain_in = [t.detach().clone().requires_grad_() for t in kernel_in]
+    launches = ssd.ssd_scan.launches
+    y, h_final = ssd.ssd_scan(*kernel_in, chunk)
+    assert ssd.ssd_scan.launches == launches + 1
+    assert y.grad_fn is not None
+    y_want, h_want = ssd.ssd_scan_plain(*plain_in, chunk)
+    tol = 3e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(y, y_want, atol=tol, rtol=tol)
+    wy = torch.from_numpy(rand(20, tuple(y.shape))).to(cuda)
+    wh = torch.from_numpy(rand(21, tuple(h_final.shape))).to(cuda)
+    got = torch.autograd.grad((y * wy).sum() + (h_final * wh).sum(), kernel_in)
+    want = torch.autograd.grad((y_want * wy).sum() + (h_want * wh).sum(),
+                               plain_in)
+    assert ssd.ssd_scan.launches == launches + 1    # the backward launches none
+    for name, a, w, t in zip("x dt A B C".split(), got, want, kernel_in):
+        assert a.dtype == t.dtype, name
+        gtol = 1e-5 if a.dtype == torch.float32 else 2 ** -7
+        torch.testing.assert_close(a, w, atol=gtol * float(w.abs().max()),
+                                   rtol=gtol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b", "granite-3-8b"])
+def test_cuda_train_step_matches_cpu(cuda, name):
+    """One reduced f32 train step (2 microbatches, remat on, S 40 so the SSD
+    chunk pads) on the card against the same step on the CPU: loss and grad
+    norm within 1e-5, first moments within 1e-4 of each leaf's largest;
+    updated params within 1e-3 lr where |g| >= 100 eps and within 2 lr
+    below (the step moves an entry by lr g / (|g| + eps), which a rounding
+    of a gradient near eps moves by up to lr); the card's SSD scan is the
+    kernel."""
+    from repro_torch import bridge, optim
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = reduced(ARCHS[name])
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    ctx = T.ParallelCtx(remat=True, q_block=8, kv_block=8, loss_chunk=8)
+    lr = 1e-3
+    step = make_train_step(cfg, ctx, TrainConfig(
+        microbatches=2, compute_dtype=torch.float32,
+        adamw=optim.AdamWConfig(lr=lr, warmup_steps=0)))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2, 40)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2, 40)))
+    out = []
+    launches = ssd.ssd_scan.launches
+    for dev in ("cpu", cuda):
+        p = bridge.tree_map(lambda t: t.to(dev), params)
+        out.append(step(p, optim.init(p), toks.to(dev), labels.to(dev)))
+    if cfg.ssm is not None:
+        assert ssd.ssd_scan.launches > launches
+    (cp, cs, cm), (gp, gs, gm) = out
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[k].cpu(), cm[k], atol=0, rtol=1e-5)
+    for a, b, mu in zip(bridge.tree_flatten(cp)[0], bridge.tree_flatten(gp)[0],
+                        bridge.tree_flatten(cs.mu)[0]):
+        tol = torch.where(mu.abs() / 0.1 >= 1e-6, 1e-3 * lr, 2 * lr)
+        assert bool(((b.cpu() - a).abs() <= tol).all())
+    for a, b in zip(bridge.tree_flatten(cs.mu)[0], bridge.tree_flatten(gs.mu)[0]):
+        torch.testing.assert_close(b.cpu(), a, rtol=0,
+                                   atol=1e-4 * float(a.abs().max()) + 1e-30)

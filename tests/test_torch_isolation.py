@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``src/repro_torch`` nor ``chip_smoke.py``
 imports ``jax`` or the reference package ``repro``, the port's serving
-entry point, control plane and trace generators import (and the ML trace,
-which reads the config zoo, runs) with both made unimportable, and the port
-exports every public name of the reference's ``core`` and ``data``."""
+entry point, control plane, trace generators, optimizer and trainer import
+(and the ML trace, which reads the config zoo, runs) with both made
+unimportable, and the port exports every public name of the reference's
+``core``, ``data``, ``optim`` and ``train``."""
 import ast
 import os
 import subprocess
@@ -43,6 +44,7 @@ def test_port_imports_without_jax_or_reference():
             "import repro_torch.kernels.ops, repro_torch.bridge\n"
             "import repro_torch, repro_torch.core, repro_torch.data\n"
             "import repro_torch.data.workloads\n"
+            "import repro_torch.optim, repro_torch.train\n"
             "repro_torch.data.ml_trace(repro_torch.data.MLTraceConfig(\n"
             "    total_pages=64, n_steps=1))\n"
             "print('ok')\n")
@@ -53,7 +55,13 @@ def test_port_imports_without_jax_or_reference():
     assert out.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("module", ["repro", "repro.core", "repro.data"])
+# the sharded training pieces wait for the multi-device layer (ROADMAP
+# Queue 1 item 13)
+NOT_YET = {"zero1_specs", "make_shardings"}
+
+
+@pytest.mark.parametrize("module", ["repro", "repro.core", "repro.data",
+                                    "repro.optim", "repro.train"])
 def test_port_exports_every_reference_name(module):
     """``device_ops`` is skipped: the port's data plane takes torch tensors
     and its signatures differ by design."""
@@ -62,5 +70,6 @@ def test_port_exports_every_reference_name(module):
     port = importlib.import_module(module.replace("repro", "repro_torch", 1))
     names = getattr(ref, "__all__", None) or \
         [n for n in vars(ref) if not n.startswith("_")]
-    missing = [n for n in names if n != "device_ops" and not hasattr(port, n)]
+    missing = [n for n in names if n != "device_ops" and n not in NOT_YET
+               and not hasattr(port, n)]
     assert not missing, f"{port.__name__} lacks {missing}"
