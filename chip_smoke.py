@@ -29,8 +29,17 @@ prefill and decode, held against their full forward in f32, then in bf16
 (8 of 40 layers) and mamba2-2.7b (16 of 64 layers, the SSD scan's forward
 on the kernel under autograd), then holds the scan's gradients against the
 plain scan's, a reduced train step of every arch against the CPU, and a
-``ValetCheckpointer`` round trip with a resumed step.  Each main path runs
-with every kernel's launch count
+``ValetCheckpointer`` round trip with a resumed step.  Phase 12 runs the
+sharded serve step (``launch/serve_step.py``): the paged kernel's partial
+entry at granite's and gemma3's global-layer decode shapes over pages split
+round-robin across 1, 2, 4 and 8 ranks, each rank's partials held against
+the plain version and all combined against one unsplit call (f32, bf16;
+int8 pools against the plain partials combined), then full-width
+granite-3-8b (8 of 40 layers) and gemma3-4b (6 of 34) in f32 on one rank
+(a 1x1 mesh over NCCL) held against ``models.decode``, and on four ranks
+(2x2) sharing the card over gloo, fed the one rank's tokens and held
+against its logits, with one migration step checked against the moved
+pages.  Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -62,6 +71,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_BF16_ABS_ERR = 1e-3
+# calls of each kernel's plain version on CUDA tensors (main() counts them)
+PLAIN_CUDA_CALLS = {"paged": 0, "paged_partials": 0, "flash": 0, "ssd": 0}
 
 
 def log(*a):
@@ -97,37 +108,70 @@ def time_ms(fn, reps=30, flush=None):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=20, flush=None):
+def l2_flush(dev="cuda"):
+    """A callable that evicts the L2 (50 MB) by rewriting 256 MB: an int32
+    ``bitwise_not_``, a kernel no measured call launches, so ``device_ms``
+    can leave it out by name."""
+    return torch.empty(64 << 20, dtype=torch.int32, device=dev).bitwise_not_
+
+
+# the kernels of a flush (or of the marker), by the size of its tensor:
+# learnt from the first window of it alone that holds each exactly once per
+# call.  Late in a long run the profiler often records nothing in a window
+# that small, while windows with the measured call in them come back whole
+BETWEEN_KERNELS = {}
+
+
+def device_ms(fn, reps=20, flush=None, tries=8):
     """Device time of one call of ``fn``: the summed time of the CUDA kernels
     it launches, from ``torch.profiler`` over ``reps`` calls after a warm-up.
     Unlike ``time_ms`` it leaves out the host time of the call (a wrapper's
     checks, allocations and launches), which events around a single call
-    include when the device waits for the host.  ``flush()`` runs before
-    each call; its own kernels' time, measured alone, is taken off."""
-    from torch.profiler import ProfilerActivity, profile
+    include when the device waits for the host.  Before each call runs
+    ``flush()`` (``l2_flush``), or else a one-element marker of the same
+    kind; their kernels (``BETWEEN_KERNELS``) are left out of the sum.
 
-    def kernels_us(f):
+    The profiler may drop some of a window's kernel events.  So each kernel
+    counts at its mean time, times its whole number of launches per call; a
+    window is taken again when a kernel's count is a quarter or more off a
+    whole number per call, or the flush's kernels are missing."""
+    from torch.profiler import ProfilerActivity, profile
+    between = flush or torch.zeros(1, dtype=torch.int32, device="cuda").bitwise_not_
+    size = between.__self__.numel()
+
+    def kernels(f):
+        """Per kernel name: (launches per call, mean us)."""
         f()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 f()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        return {e.key: (e.count / reps, e.self_device_time_total / e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
 
-    def measure():
-        if flush is None:
-            return kernels_us(fn) / reps / 1e3
-        both = kernels_us(lambda: (flush(), fn()))
-        return (both - kernels_us(flush)) / reps / 1e3
-
-    # the profiler now and then returns a window without its kernel events
-    for _ in range(3):
-        ms = measure()
-        if ms > 0:
-            return ms
-    fail("device_ms: the profiler recorded no kernel time in three windows")
+    for attempt in range(1, tries + 1):
+        if size not in BETWEEN_KERNELS:
+            alone = kernels(between)
+            if alone and all(n == round(n) >= 1 for n, _ in alone.values()):
+                BETWEEN_KERNELS[size] = {k: round(n) for k, (n, _) in alone.items()}
+            else:
+                log(f"    device_ms: window {attempt} of the flush alone lost kernel "
+                    f"events ({[round(n, 2) for n, _ in alone.values()]}); taken again")
+                continue
+        skip = BETWEEN_KERNELS[size]
+        both = kernels(lambda: (between(), fn()))
+        seen = {k: round(both.get(k, (0, 0))[0]) for k in skip}
+        lost = [f"{n:.2f}" for n, _ in both.values()
+                if round(n) < 1 or abs(n - round(n)) >= 0.25 * round(n)]
+        if not lost and any(seen[k] > n for k, n in skip.items()):
+            fail(f"device_ms: the measured call launches the flush's kernels {list(skip)}")
+        if not lost and len(both) > len(skip) and seen == skip:
+            return sum(round(n) * us for k, (n, us) in both.items() if k not in skip) / 1e3
+        log(f"    device_ms: window {attempt} lost kernel events (launches per call "
+            f"{lost or [round(n, 2) for n, _ in both.values()]}); taken again")
+    fail(f"device_ms: the profiler lost kernel events in {tries} windows")
 
 
 def timings(kernel_fn, plain_fn, library_fn, *, flush=None, plain_reps=30):
@@ -264,10 +308,9 @@ def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, **ro
     q_el = torch.finfo(q_dtype).bits // 8
     n_bytes = 2 * live * hkv * d * kv_el + 2 * b * hq * d * q_el + bt.nbytes + lengths.nbytes
     n_ops = 4 * live * (hq // hkv) * hkv * d
-    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     kernel_fn = lambda: pa.paged_attention(q, kp, vp, btt, lt)  # noqa: E731
     plain_fn = lambda: pa.paged_attention_plain(q, kp, vp, btt, lt)  # noqa: E731
-    times = timings(kernel_fn, plain_fn, None, flush=flush_buf.zero_)
+    times = timings(kernel_fn, plain_fn, None, flush=l2_flush(dev))
     bms, by = bound_ms(n_bytes, n_ops, kv_dtype)
     n_splits = pa.plan_for(q, kp, btt)[1]
     rec = dict(max_abs_err=max_err(out, ref), bound_ms=bms, bound_by=by,
@@ -715,17 +758,22 @@ def profile_decode(name, cfg, params, ctx, prompts, *, steps=8, pool_slots=512,
 @contextlib.contextmanager
 def off_path():
     """Kernel launches made inside (profiles, timings, drift checks that call
-    the model directly) are left out of the main path's launch counts."""
+    the model directly, kernels held against their plain versions), and the
+    plain versions' calls on CUDA tensors there, are left out of the main
+    path's counts."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
-    wrappers = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    wrappers = (fa.flash_attention, pa.paged_attention, pa.paged_attention_partials,
+                ssd.ssd_scan)
     before = [w.launches for w in wrappers]
+    plain_before = dict(PLAIN_CUDA_CALLS)
     try:
         yield
     finally:
         for w, n in zip(wrappers, before):
             w.launches = n
+        PLAIN_CUDA_CALLS.update(plain_before)
 
 
 def prefill_once(cfg, params, ctx, prompt, page=16):
@@ -1785,6 +1833,408 @@ def phase_training():
         checkpoint_round_trip()
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the sharded serve step
+# --------------------------------------------------------------------------
+
+# Full-width granite-3-8b at 8 of 40 layers and gemma3-4b at 6 of 34 (5
+# local + 1 global), f32, batch 8: each row is fed a prompt of 64-128
+# tokens one token per step, then its own argmax for SHARD_NEW steps (rows
+# with shorter prompts generate more, as the batch steps together).
+SHARD_ARCHS = (("granite-3-8b", 8, 2), ("gemma3-4b", 6, 3))   # name, layers, seed
+SHARD_BATCH, SHARD_NEW, SHARD_PAGE = 8, 32, 16
+SHARD_PROMPTS = (64, 128)   # cut from 64-256 to fit the phase's 120 s
+SHARD_TOL = 1e-4            # of the largest logit of (b)'s step (real vocab)
+SHARD_MESH = (2, 2)         # (c): data x model ranks sharing the card
+SHARD_SECONDS = 300         # (c)'s ranks fail past this
+# (a)'s shapes: (hq, hkv, d, max_len, n_pages), batches, kvrs.  Granite's
+# heads over rows of up to 576 tokens (the timed case: B 8, kvr 2, f32),
+# then the launches of (b) and (c): B 8 on one rank, B 4 per data rank on
+# two KV ranks, tables of 10 pages (160 steps), granite and gemma3's global
+# layer
+PARTIAL_SHAPES = (((32, 8, 128, 576, None), (8,), (2, 4, 8)),
+                  ((32, 8, 128, 160, 10), (8, 4), (1, 2)),
+                  ((8, 4, 256, 160, 10), (8, 4), (1, 2)))
+
+
+def shard_prompts(cfg, seed):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SHARD_PROMPTS[0], SHARD_PROMPTS[1] + 1, size=SHARD_BATCH)
+    return [rng.integers(2, cfg.vocab, size=int(n)) for n in lens]
+
+
+def shard_geometry(cfg, mesh, n_steps):
+    """The decode shape, plan and global step inputs of a run of ``n_steps``
+    steps from length 0: page pg of a row on KV rank pg % kvr as local page
+    pg // kvr, slots handed out in order per (data, KV) rank."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve_step as SS
+    shape = ShapeConfig("chip_smoke", seq_len=n_steps, global_batch=SHARD_BATCH,
+                        kind="decode")
+    plan = SS.DecodePlan(batch_axes=("data",), kv_axes=("model",), page=SHARD_PAGE)
+    geo = SS.cache_geometry(cfg, shape, mesh, plan)
+    dp, kvr, b_loc = geo["dp"], geo["kvr"], geo["b_loc"]
+    bt = np.full((dp, kvr, b_loc, geo["p_loc"]), -1, np.int32)
+    used = np.zeros((dp, kvr), int)
+    for b in range(SHARD_BATCH):
+        for pg in range(geo["p_tot"]):
+            d, r = b // b_loc, pg % kvr
+            bt[d, r, b % b_loc, pg // kvr] = used[d, r]
+            used[d, r] += 1
+    assert used.max() <= geo["slots_loc"]
+    return shape, plan, bt
+
+
+def shard_step(bt, t, tokens, kvr):
+    """Global step inputs of step t (every row at length t)."""
+    b_loc = bt.shape[2]
+    pg = t // SHARD_PAGE
+    rank = pg % kvr
+    slot = np.array([bt[b // b_loc, rank, b % b_loc, pg // kvr] for b in range(SHARD_BATCH)],
+                    np.int32)
+    full = lambda v: np.full(SHARD_BATCH, v, np.int32)  # noqa: E731
+    return {"tokens": np.asarray(tokens, np.int32), "block_table": bt,
+            "app_slot": slot, "app_off": full(t % SHARD_PAGE), "app_rank": full(rank),
+            "lengths": full(t)}
+
+
+def shard_params(cfg, seed, mesh):
+    """This rank's shards of the seed's full-width f32 params (the full tree
+    is made on the card, cut, and freed)."""
+    from repro_torch.bridge import shard_to_torch
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    full = T.init_params(cfg, generator=gen, device="cuda")
+    out = shard_to_torch(full, T.param_pspecs(full, cfg, model_size=mesh.shape["model"]),
+                         mesh, device="cuda")
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_sharded(cfg, mesh, params, prompts, n_steps, *, fed=None, on_step=None):
+    """Drive ``make_serve_step`` for ``n_steps`` steps on this rank: row b
+    is fed its prompt, then its own argmax (or ``fed[t]``, the global token
+    stream of an earlier run).  ``on_step(t, tokens, logits)`` sees every
+    step's local output.  Returns the fed global tokens (steps, B), the
+    rank's final caches and the wall ms of each step (synchronised)."""
+    from repro_torch.launch import serve_step as SS
+    from repro_torch.launch.mesh import local_block
+    shape, plan, bt = shard_geometry(cfg, mesh, n_steps)
+    fn, plan, _ = SS.make_serve_step(cfg, shape, mesh, plan=plan,
+                                     compute_dtype=torch.float32)
+    structs, cspecs, _, sspecs, _ = SS.decode_struct(cfg, shape, mesh, plan,
+                                                     dtype=torch.float32)
+    caches = [{k: torch.zeros(local_block(v, cs[k], mesh).shape, dtype=v.dtype,
+                              device="cuda") for k, v in c.items()}
+              for c, cs in zip(structs, cspecs)]
+    kvr = SS.axis_sizes(mesh, plan.kv_axes)
+    d = mesh.index("data")
+    b_loc = SHARD_BATCH // mesh.shape["data"]
+    prev = np.zeros(SHARD_BATCH, np.int32)
+    tokens_fed, walls = [], []
+    for t in range(n_steps):
+        tok = np.array([p[t] if t < len(p) else prev[b] for b, p in enumerate(prompts)],
+                       np.int32)
+        if fed is not None:
+            tok = fed[t]
+        tokens_fed.append(tok)
+        step = {k: torch.from_numpy(np.ascontiguousarray(local_block(v, sspecs[k], mesh)))
+                .to("cuda") for k, v in shard_step(bt, t, tok, kvr).items()}
+        t0 = time.perf_counter()
+        toks, caches, logits = fn(params, caches, step, with_logits=True)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        out = toks.cpu().numpy()
+        prev = prev.copy()
+        prev[d * b_loc:(d + 1) * b_loc] = out
+        if on_step is not None:
+            on_step(t, out, logits)
+    return np.stack(tokens_fed), caches, walls
+
+
+def partial_case(shape, kvr, dtype, pool, seed=21, timed=False):
+    """(a): one decode batch's pages split over kvr ranks, ``shape`` = (b,
+    hq, hkv, d, max_len, n_pages); each rank's partials from the kernel
+    against its plain version, and combined over the ranks against one
+    ``paged_attention`` call on the unsplit table (float pools) or against
+    the plain partials combined (int8 pools, scales in q's dtype); a repeat
+    bit-identical.  ``timed``: returns rank 0's timings and bound."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.attention import combine_partials
+    b, hq, hkv, d, max_len, n_pages = shape
+    q, kp, vp, btt, lt = paged_inputs(b, hq, hkv, d, SHARD_PAGE, max_len, dtype, dtype,
+                                      seed, n_pages=n_pages)
+    kw = {}
+    if pool == "int8":
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        kp = torch.randint(-127, 128, kp.shape, device="cuda", generator=g, dtype=torch.int8)
+        vp = torch.randint(-127, 128, vp.shape, device="cuda", generator=g, dtype=torch.int8)
+        kw = {n: (torch.rand(kp.shape[:-1], device="cuda", generator=g) * 0.03 + 1e-3)
+              .to(dtype) for n in ("k_scale", "v_scale")}
+    bt = btt.cpu().numpy()
+    tables = [torch.from_numpy(np.ascontiguousarray(bt[:, r::kvr])).to("cuda")
+              for r in range(kvr)]
+    call = lambda fn, r: fn(q, kp, vp, tables[r], lt, kvr=kvr, rank=r, **kw)  # noqa: E731
+    parts = [call(pa.paged_attention_partials, r) for r in range(kvr)]
+    again = [call(pa.paged_attention_partials, r) for r in range(kvr)]
+    plain = [call(pa.paged_attention_partials_plain, r) for r in range(kvr)]
+    name = (f"partials B{b} Hq{hq} Hkv{hkv} D{d} len<={max_len} P{bt.shape[1]} kvr {kvr} "
+            f"q {str(dtype)[6:]} pool {pool}")
+    for a, b_, c in zip(parts, again, plain):
+        assert_repeatable(name, a, b_)
+        for got, want in zip(a, c):
+            assert_close(name, got, want, dtype)
+    got = combine_partials(tuple(torch.stack(x) for x in zip(*parts)), dtype)
+    if pool == "int8":
+        want = combine_partials(tuple(torch.stack(x) for x in zip(*plain)), dtype)
+        tol = TOL[dtype]
+    else:
+        want = pa.paged_attention(q, kp, vp, btt, lt)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+    err = max_err(got, want)
+    if err > tol or not torch.isfinite(got).all():
+        fail(f"{name}: combined partials {err:.3e} from the reference (tol {tol})")
+    if not timed:
+        log(f"  (a) {name}: {pa.plan_for(q, kp, tables[0])[1]} splits, combined err "
+            f"{err:.3e}")
+        return None
+    # one rank's call: its live tokens, bytes and operations
+    lengths, r = lt.cpu().numpy(), 0
+    local = bt[:, r::kvr]
+    live = sum(max(0, min(SHARD_PAGE, int(lengths[i]) - (j * kvr + r) * SHARD_PAGE))
+               for i in range(local.shape[0]) for j in range(local.shape[1])
+               if local[i, j] >= 0)
+    kv_el, q_el = kp.element_size(), q.element_size()
+    n_bytes = (2 * live * hkv * d * kv_el + b * hq * d * q_el + local.nbytes
+               + lengths.nbytes + 4 * b * hq * (d + 2)
+               + (2 * live * hkv * q_el if pool == "int8" else 0))
+    n_ops = 4 * live * hq * d
+    one = tables[r]
+    kernel_fn = lambda: pa.paged_attention_partials(q, kp, vp, one, lt, kvr=kvr, rank=r, **kw)  # noqa: E731
+    plain_fn = lambda: pa.paged_attention_partials_plain(q, kp, vp, one, lt, kvr=kvr, rank=r,  # noqa: E731
+                                                         **kw)
+    times = timings(kernel_fn, plain_fn, None, flush=l2_flush())
+    bms, by = bound_ms(n_bytes, n_ops, torch.float32)      # the products run in f32
+    log(f"  (a) {name}: {pa.plan_for(q, kp, one)[1]} splits, combined err {err:.3e}; "
+        f"rank 0: {times_text(times)}  bound {bms:.4f} ms ({by}; "
+        f"{100 * bms / times['device_ms']:.1f}% of the device time)")
+    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times)
+
+
+def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_dir):
+    """One of (c)'s gloo ranks on the shared card: the sharded serve step on
+    (b)'s token stream, every step's logits held against (b)'s, then one
+    migration step checked against the moved payloads."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve_step as SS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=SHARD_MESH[0] * SHARD_MESH[1],
+                            timeout=datetime.timedelta(seconds=SHARD_SECONDS))
+    plain_calls = [0]
+    plain = pa.paged_attention_partials_plain
+
+    def counted(q, *a, **kw):
+        plain_calls[0] += int(q.is_cuda)
+        return plain(q, *a, **kw)
+    pa.paged_attention_partials_plain = counted
+    mesh = mesh_lib.make_local_mesh(*SHARD_MESH)
+    # host wall spent inside the collectives
+    coll_ms, coll_calls = [0.0], [0]
+    for op in ("all_reduce", "all_gather", "ring_shift"):
+        fn = getattr(mesh, op)
+
+        def timed(*a, _fn=fn, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            coll_ms[0] += 1e3 * (time.perf_counter() - t0)
+            coll_calls[0] += 1
+            return out
+        setattr(mesh, op, timed)
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    params = shard_params(cfg, seed, mesh)
+    d = mesh.index("data")
+    b_loc = SHARD_BATCH // mesh.shape["data"]
+    worst, flips, per_step_coll = 0.0, 0, []
+    pa.paged_attention_partials.launches = 0
+
+    def check(t, toks, logits):
+        nonlocal worst, flips
+        per_step_coll.append(coll_ms[0])
+        # the real vocab: the padded tail is -1e30 in both
+        ref = ref_logits[t, d * b_loc:(d + 1) * b_loc, :cfg.vocab]
+        logits = logits[:, :cfg.vocab]
+        scale = float(ref.abs().max())
+        worst = max(worst, max_err(logits, ref) / scale)
+        top2 = ref.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > SHARD_TOL * scale
+        flips += int(((logits.argmax(-1) != ref.argmax(-1)) & sure).sum())
+
+    _, caches, walls = serve_sharded(cfg, mesh, params, prompts, len(fed), fed=fed,
+                                     on_step=check)
+    launches = pa.paged_attention_partials.launches
+    calls_per_step = coll_calls[0] / len(fed)
+    coll = np.diff([0.0] + per_step_coll)
+    # one migration step on the first paged segment: payloads go one hop
+    # along the model ring; the destination slots must hold exactly what
+    # the previous rank sent
+    seg = next(i for i, c in enumerate(caches) if "pool_k" in c)
+    slots = caches[seg]["pool_k"].shape[3]
+    g = np.random.default_rng(100 + rank)
+    src = torch.from_numpy(g.permutation(slots)[:4].astype(np.int32)).to("cuda")[None, None]
+    dst = torch.from_numpy(g.permutation(slots)[:4].astype(np.int32)).to("cuda")[None, None]
+    migrate = SS.make_migrate_step(mesh, SS.DecodePlan(("data",), ("model",),
+                                                       page=SHARD_PAGE))
+    kvr, my = mesh.shape["model"], mesh.index("model")
+    moved = {}
+    for key in ("pool_k", "pool_v"):
+        payload = caches[seg][key][:, 0, 0][:, src[0, 0].long()]
+        moved[key] = mesh.all_gather(payload[None], "model", dim=0)[(my - 1) % kvr]
+    migrate(caches[seg]["pool_k"], caches[seg]["pool_v"], src, dst)
+    migrated = all(torch.equal(caches[seg][k][:, 0, 0][:, dst[0, 0].long()], moved[k])
+                   for k in moved)
+    res = dict(rank=rank, worst=worst, flips=flips, launches=launches,
+               plain_cuda_calls=plain_calls[0], migrated=migrated,
+               step_ms=float(np.median(walls[1:])), coll_ms=float(np.median(coll[1:])),
+               coll_calls=calls_per_step,
+               backend=mesh.backend, staged=sorted(mesh_lib.HOST_STAGED),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_arch(name, n_layers, seed):
+    """(b) then (c) for one arch."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    prompts = shard_prompts(cfg, seed)
+    n_steps = max(len(p) for p in prompts) + SHARD_NEW
+    # (b) one rank, a 1x1 mesh over NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    mesh = make_local_mesh(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, device="cuda")
+    steps_logits = torch.empty((n_steps, SHARD_BATCH, cfg.padded_vocab), device="cuda")
+    toks_b = []
+
+    def keep(t, toks, logits):
+        steps_logits[t] = logits
+        toks_b.append(toks)
+    fed, _, walls = serve_sharded(cfg, mesh, params, prompts, n_steps, on_step=keep)
+    dist.destroy_process_group()
+    # a step reads every weight once, but of an untied input embedding only
+    # its batch's rows
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        w_bytes -= params["embed"].numel() * params["embed"].element_size()
+    # ... held against single-device models.decode on the same token stream
+    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
+    n_pages = -(-n_steps // SHARD_PAGE)
+    bt = torch.arange(SHARD_BATCH * n_pages, dtype=torch.int32,
+                      device="cuda").reshape(SHARD_BATCH, n_pages)
+    worst, mism = 0.0, 0
+    with off_path():
+        caches = D.init_caches(cfg, SHARD_BATCH, pool_slots=SHARD_BATCH * n_pages,
+                               page=SHARD_PAGE, device="cuda")
+        for t in range(n_steps):
+            lg, caches = D.decode_step(params, caches, torch.from_numpy(fed[t]).to("cuda"),
+                                       cfg, ctx, bt, bt[:, t // SHARD_PAGE],
+                                       torch.full((SHARD_BATCH,), t % SHARD_PAGE))
+            real = lg[:, :cfg.vocab]          # the padded tail is -1e30 in both
+            worst = max(worst, max_err(steps_logits[t, :, :cfg.vocab], real)
+                        / float(real.abs().max()))
+            mism += int((lg.argmax(-1).cpu().numpy() != toks_b[t]).sum())
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) {name} ({n_layers} layers) one rank: {n_steps} steps, "
+        f"{float(np.median(walls[1:])):.3f} ms per step (median; the weights' byte "
+        f"bound {1e3 * w_bytes / HBM_BYTES_PER_S:.3f} ms), logits within "
+        f"{worst:.3e} of the largest of models.decode's, {mism} tokens differ")
+    if worst > SHARD_TOL or mism:
+        fail(f"{name}: the one-rank serve step differs from models.decode "
+             f"({worst:.3e}, {mism} tokens)")
+    # (c) four ranks sharing the card over gloo, fed (b)'s tokens
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = mp.start_processes(
+            _shard_rank, args=(_free_port(), name, n_layers, seed, prompts, fed,
+                               steps_logits, out_dir),
+            nprocs=SHARD_MESH[0] * SHARD_MESH[1], join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARD_SECONDS
+        try:
+            while not procs.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                if time.monotonic() > deadline:
+                    fail(f"{name}: the four ranks outlasted {SHARD_SECONDS} s")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        res = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+               for r in range(SHARD_MESH[0] * SHARD_MESH[1])]
+    del steps_logits
+    torch.cuda.empty_cache()
+    pa.paged_attention_partials.launches += sum(r["launches"] for r in res)
+    PLAIN_CUDA_CALLS["paged_partials"] += sum(r["plain_cuda_calls"] for r in res)
+    worst = max(r["worst"] for r in res)
+    flips = sum(r["flips"] for r in res)
+    log(f"  (c) {name} four ranks (2x2, gloo, one card): per-step wall "
+        f"{[round(r['step_ms'], 3) for r in res]} ms (median), host wall inside "
+        f"{res[0]['coll_calls']:.0f} collective calls (waits for their inputs' "
+        f"kernels included) {[round(r['coll_ms'], 3) for r in res]} ms per step; logits "
+        f"within {worst:.3e} of (b)'s largest; {flips} argmax flips past the top-2 "
+        f"gap; migration bit-equal {[r['migrated'] for r in res]}; partial launches "
+        f"{[r['launches'] for r in res]}; staged through the host on "
+        f"{res[0]['backend']}: {res[0]['staged']}; peak "
+        f"{[round(r['peak_gb'], 2) for r in res]} GB")
+    if worst > SHARD_TOL or flips or not all(r["migrated"] for r in res):
+        fail(f"{name}: the four-rank serve step disagrees with one rank's")
+
+
+def phase_sharded():
+    log("phase 12: the sharded serve step (launch/serve_step.py): the partial entry "
+        "of the paged kernel, then full-width granite-3-8b (8 of 40 layers) and "
+        "gemma3-4b (6 of 34) on one rank (NCCL) and on four ranks sharing the card "
+        "(gloo), f32")
+    with off_path():
+        rec = None
+        for shape, batches, kvrs in PARTIAL_SHAPES:
+            for b in batches:
+                for kvr in kvrs:
+                    for dtype, pool in ((torch.float32, "float32"),
+                                        (torch.bfloat16, "bfloat16"),
+                                        (torch.float32, "int8"), (torch.bfloat16, "int8")):
+                        timed = rec is None and kvr == 2 and pool == "float32"
+                        r = partial_case((b,) + shape, kvr, dtype, pool, timed=timed)
+                        rec = rec or r
+    for name, n_layers, seed in SHARD_ARCHS:
+        shard_arch(name, n_layers, seed)
+    return rec
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1800,7 +2250,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1843,9 +2293,10 @@ def main():
     # every count of plain-version calls on CUDA tensors set to 0 just
     # before it, and read just after; the profiles and checks a phase runs
     # beside its serving runs are off the path (``off_path``)
-    wrappers = {"paged": (pa, "paged_attention"), "flash": (fa, "flash_attention"),
-                "ssd": (ssd, "ssd_scan")}
-    plain_cuda_calls = dict.fromkeys(wrappers, 0)
+    wrappers = {"paged": (pa, "paged_attention"),
+                "paged_partials": (pa, "paged_attention_partials"),
+                "flash": (fa, "flash_attention"), "ssd": (ssd, "ssd_scan")}
+    plain_cuda_calls = PLAIN_CUDA_CALLS
 
     def counting(fn, key):
         def wrapped(x, *a, **kw):
@@ -1867,7 +2318,12 @@ def main():
                   # path, as the reference does (neither package has a flash
                   # backward), so granite's steps launch none of the three
                   # kernels; mamba2's launch the SSD scan forward
-                  (11, "training granite-3-8b and mamba2-2.7b", phase_training, ("ssd",))]
+                  (11, "training granite-3-8b and mamba2-2.7b", phase_training, ("ssd",)),
+                  # the sharded serve step reads the pools through the partial
+                  # entry only; four ranks' launches come back from them
+                  (12, "sharded serve step granite-3-8b and gemma3-4b", phase_sharded,
+                   ("paged_partials",))]
+    path_recs = {}
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:
         if num not in phases:
@@ -1881,7 +2337,7 @@ def main():
             getattr(mod, fn).launches = 0
             plain_cuda_calls[key] = 0
         t0 = time.perf_counter()
-        run_path()
+        path_recs[num] = run_path()
         counts = {key: getattr(mod, fn).launches for key, (mod, fn) in wrappers.items()}
         log(f"  phase {num}: {time.perf_counter() - t0:.1f} s wall; {name} main "
             f"path kernel launches {counts}, plain-version calls on CUDA tensors "
@@ -1902,10 +2358,14 @@ def main():
         f = recs[("flash", 512, torch.bfloat16)]
         d = recs[("ssd", "mamba2", torch.bfloat16)]
         kernels = [
+            # the partial entry is the same source's other entry: its own
+            # line counts its launches, and the sum of both stands apart
             dict(name="paged_attention", route="cuda",
                  source="src/repro_torch/csrc/paged_attention.cu",
                  replaces="src/repro/kernels/paged_attention.py:87",
-                 launches=launches["paged"], **p),
+                 launches=launches["paged"],
+                 launches_with_partials=launches["paged"] + launches["paged_partials"],
+                 **p),
             dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/csrc/flash_attention_tc.cu",
                  replaces="src/repro/kernels/flash_attention.py:88",
@@ -1915,6 +2375,11 @@ def main():
                  replaces="src/repro/kernels/ssd_scan.py:25",
                  launches=launches["ssd"], **d),
         ]
+    if path_recs.get(12) is not None:
+        kernels.append(dict(name="paged_attention_partials", route="cuda",
+                            source="src/repro_torch/csrc/paged_attention.cu",
+                            replaces="src/repro/kernels/paged_attention.py:87",
+                            launches=launches["paged_partials"], **path_recs[12]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

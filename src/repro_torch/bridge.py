@@ -8,6 +8,8 @@ weights' dtype: ``F32_LEAVES``); ``to_numpy`` is its inverse.  Leaves are
 read through ``np.asarray``, so anything that converts to a numpy array is
 accepted.
 bfloat16 arrays (numpy's ``bfloat16`` extension dtype) cross bit for bit.
+``shard_to_torch`` cuts a global tree into one rank's local shards by the
+placements of ``models.transformer.param_pspecs``.
 An optimizer state crosses with ``opt_state_to_torch`` and
 ``opt_state_to_numpy``.  ``tree_flatten`` and ``tree_unflatten`` order the
 leaves as ``jax.tree.flatten`` does.
@@ -111,6 +113,32 @@ def to_torch(tree: Any, device="cuda",
         keep = dtype is None or key in F32_LEAVES
         return _leaf_to_torch(t, device, None if keep else dtype)
     return walk(tree)
+
+
+def shard_to_torch(tree: Any, specs: Any, mesh, device="cuda",
+                   dtype: Optional[torch.dtype] = None) -> Any:
+    """A global parameter tree (numpy or torch leaves) -> this rank's local
+    shards of it.
+
+    ``specs`` is the placement tree (``param_pspecs``) and ``mesh`` the rank
+    mesh (``launch/mesh.py``): each leaf is cut to the rank's block, then put
+    on ``device`` as ``to_torch`` does (a torch leaf's block is copied, so
+    the global tree can be freed).  A sharded dim is cut in contiguous
+    blocks, so the fused SwiGLU ``wgu``, whose gate and up columns are
+    interleaved, keeps matching pairs in every block."""
+    from repro_torch.launch.mesh import local_block
+
+    def walk(t, sp, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, sp[k], k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, s) for v, s in zip(t, sp))
+        cast = None if dtype is None or key in F32_LEAVES else dtype
+        if isinstance(t, torch.Tensor):
+            block = local_block(t, sp, mesh)
+            return block.to(device=device, dtype=cast or block.dtype, copy=True)
+        return _leaf_to_torch(local_block(np.asarray(t), sp, mesh), device, cast)
+    return walk(tree, specs)
 
 
 def to_numpy(tree: Any) -> Any:

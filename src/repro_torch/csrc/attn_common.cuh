@@ -17,7 +17,7 @@ constexpr int kThreads = 128;       // four warps per block
 constexpr int kWarps = kThreads / 32;
 
 // dtype codes passed through the C interface
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 // Elements per 16-byte vector.
 template <typename T> struct Vec;

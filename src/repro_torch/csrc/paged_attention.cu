@@ -56,6 +56,22 @@
 //    models/attention.py `combine_partials` does.  Every sum runs in a fixed
 //    order and there are no atomics, so the kernel repeats bit for bit.
 
+//
+// The partial entry (`valet_paged_attention_partials`) is the same two passes
+// for one peer of a sharded pool (src/repro/launch/serve_step.py: KV pages
+// round-robin over `kvr` ranks): local page j of rank `my` holds absolute
+// positions (j * kvr + my) * page + o, so the valid tokens of a row are
+// still a prefix of its local pages (`local_tokens`), and the blocks and
+// splits are planned over that prefix as above.  It returns the row's f32
+// partial softmax (m, l, acc) unnormalised -- pass 2 combines the splits
+// without the division -- for the peers' partials to be combined by one
+// small collective.  Its pools may also be int8 with one scale per (slot,
+// position, head) in q's dtype: a value is widened as the reference does
+// (int8 -> q's dtype, times the scale rounded to q's dtype, then f32), on
+// read from shared memory; the tile's scales are staged beside it.
+
+#include <type_traits>
+
 #include "attn_common.cuh"
 #include "mma.cuh"
 
@@ -75,6 +91,10 @@ __device__ __forceinline__ float4 load4_f32(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4_f32(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
 
 // 16 stored bytes at p (16-byte aligned) widened to f32.
 __device__ __forceinline__ void load16_f32(const float* p, float4 (&v)[1]) {
@@ -88,9 +108,29 @@ __device__ __forceinline__ void load16_f32(const __nv_bfloat16* p, float4 (&v)[2
   v[0] = make_float4(a.x, a.y, b.x, b.y);
   v[1] = make_float4(c.x, c.y, d.x, d.y);
 }
+__device__ __forceinline__ void load16_f32(const int8_t* p, float4 (&v)[4]) {
+  const int4 u = *reinterpret_cast<const int4*>(p);
+  const char4* c = reinterpret_cast<const char4*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = make_float4(c[e].x, c[e].y, c[e].z, c[e].w);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// An int8 value x times its scale s (both as f32) widened as the reference
+// does: the product in the scale's type QT -- exact in f32 for an int8 times
+// a bf16, then rounded once to bf16 -- then f32.
+__device__ __forceinline__ float dequant(float x, float s, const float*) { return x * s; }
+__device__ __forceinline__ float dequant(float x, float s, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x * s));
+}
+template <typename QT>
+__device__ __forceinline__ float4 dequant4(float4 v, float s) {
+  const QT* tag = nullptr;
+  return make_float4(dequant(v.x, s, tag), dequant(v.y, s, tag), dequant(v.z, s, tag),
+                     dequant(v.w, s, tag));
+}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
   s = fmaf(a.x, b.x, s);
@@ -110,6 +150,43 @@ __device__ __forceinline__ void fma4(float a, float4 b, float4& s) {
   fma4(make_float4(a, a, a, a), b, s);
 }
 
+// One call's arguments on the host, unpacked into the kernels' parameters
+// (kept separate and __restrict__: with a struct parameter the compiler
+// gave up the read-only loads of q, the table and the lengths).
+// Pools are (n_slots, page, Hkv, D); with int8 pools k_scale/v_scale are
+// (n_slots, page, Hkv) in q's dtype.  `partial`: write the unnormalised f32
+// partials to out_ml (B, Hq, 2: m, l) and out_acc (B, Hq, D) instead of the
+// output to `out`.  Local page j holds absolute positions (j * kvr + my) *
+// page + o, and a row's valid positions are those below its length.
+struct PagedArgs {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const void* k_scale;
+  const void* v_scale;
+  const int* block_table;
+  const int* lengths;
+  void* out;
+  float* out_ml;
+  float* out_acc;
+  float* ws_ml;
+  float* ws_acc;
+  int B, Hkv, G, D, page, P, run, n_splits, kvr, my, partial;
+  float scale;
+};
+
+// How many of a row's local tokens are valid: they are a prefix of its local
+// pages, since the absolute position grows with the local index.  Absolute
+// pages 0 .. full - 1 are whole and page `full` holds `rem` tokens; this
+// rank holds the absolute pages my, my + kvr, ...
+__device__ __forceinline__ int local_tokens(int len, int page, int P, int kvr, int my) {
+  len = max(len, 0);
+  if (kvr == 1) return min(len, P * page);
+  const int full = len / page, rem = len - full * page;
+  const int whole = full > my ? (full - my + kvr - 1) / kvr : 0;
+  return min(whole * page + (full % kvr == my ? rem : 0), P * page);
+}
+
 // The geometry of pass 1 for one call, the same on the host (shared-memory
 // size) and in the kernel.  GM is G rounded up to 4, 8 or 16: the padded
 // heads have q = 0 and are computed and dropped, so that every loop over
@@ -125,9 +202,9 @@ struct Geometry {
   // form groups of `lw` (a power of 2 >= D / 4, at least 4), each group a
   // token of its own, so that D = 64 keeps every lane busy.
   int kd, n_hg, hw, lw;
-  int kv, q, sc, p, c, rows, slots, total;     // byte offsets in shared memory
+  int kv, q, sc, p, c, sk, rows, slots, total;  // byte offsets in shared memory
   __host__ __device__ Geometry(int T, int st, int n_per16, int el, int GM, int D, int run,
-                               int page) {
+                               int page, bool quant) {
     cpr = D / n_per16;
     swz = cpr % 8 == 0 ? 4 : 0;
     rs = (cpr + (swz ? 0 : 1)) * n_per16;
@@ -142,34 +219,53 @@ struct Geometry {
     sc = q + 4 * GM * D;                         // scores: GM x (T + 1) f32
     p = sc + (4 * GM * (T + 1) + 15) / 16 * 16;  // probabilities: T x GM f32
     c = p + 4 * T * GM;                          // GM f32: corr, then l
-    rows = c + 4 * GM;                           // run int: pool row or -1
+    sk = c + 4 * GM;                             // int8 pools: st x T K, then V, scales f32
+    rows = sk + (quant ? 4 * 2 * st * T : 0);    // run int: pool row or -1
     slots = rows + 4 * run;                      // run / page int
     total = slots + 4 * (run / page + 1);
+    // the end's reduction reuses the buffer from its start: n_tg x GM x D f32
+    const int red = kPagedWarps / n_hg * GM * D * 4;
+    if (total < red) total = red;
   }
 };
 
 // Pass 1.  T: tokens per staged tile (32 or 64, a multiple of 32: lane j of
 // the softmax takes tokens j, j + 32, ...); ST: stages of the ring; GM: the
-// padded head count.
+// padded head count.  QT: q's (and the output's and the scales') type, KT:
+// the pools'.
+// ws_ml/ws_acc: the workspace with several splits; for partials of one
+// split, the outputs themselves (the launch passes out_ml/out_acc there).
 template <typename QT, typename KT, int T, int ST, int GM>
 __global__ void __launch_bounds__(kPagedThreads)
 paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
-                   const KT* __restrict__ v_pool, const int* __restrict__ block_table,
+                   const KT* __restrict__ v_pool, const QT* __restrict__ k_scale,
+                   const QT* __restrict__ v_scale, const int* __restrict__ block_table,
                    const int* __restrict__ lengths, QT* __restrict__ out,
                    float* __restrict__ ws_ml, float* __restrict__ ws_acc, int B, int Hkv,
-                   int G, int D, int page, int P, int run, int n_splits, float scale) {
+                   int G, int D, int page, int P, int run, int n_splits, int kvr, int my,
+                   bool partial, float scale) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int N = 16 / sizeof(KT);           // stored values per 16 bytes
   constexpr int TL = T / 32;                   // tokens per lane in the softmax
   constexpr int HPW = GM / kPagedWarps;        // softmax heads per warp
   static_assert(HPW >= 1 && GM % kPagedWarps == 0, "GM must be a multiple of the warps");
+  // the partials go to the workspace (several splits) or the outputs
+  // (partials of one split); with neither, the block writes `out`
+  const bool to_ws = n_splits > 1 || partial;
   const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Hq = Hkv * G;
   const size_t head0 = (size_t)b * Hq + (size_t)h * G;    // the group's first q row
-  const int n_tok = min(max(lengths[b], 0), P * page);
+  const int n_tok = local_tokens(lengths[b], page, P, kvr, my);
   const int start = split * run;
   if (start >= n_tok) {
-    if (n_splits == 1) {                       // nothing to attend: zeros, as l = 0
+    if (n_splits == 1 && partial) {            // the partial of no token: (-inf, 0, 0)
+      for (int i = tid; i < G; i += kPagedThreads) {
+        ws_ml[2 * (head0 + i)] = kNegInf;
+        ws_ml[2 * (head0 + i) + 1] = 0.f;
+      }
+      for (int i = tid; i < G * D; i += kPagedThreads) ws_acc[head0 * D + i] = 0.f;
+    } else if (n_splits == 1) {                // nothing to attend: zeros, as l = 0
       for (int i = tid; i < G * D; i += kPagedThreads) store_out(out + head0 * D + i, 0.f);
     }
     return;
@@ -177,7 +273,7 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
   const int stop = min(start + run, n_tok);
   const int n_tiles = (stop - start + T - 1) / T;
 
-  const Geometry geo(T, ST, N, sizeof(KT), GM, D, run, page);
+  const Geometry geo(T, ST, N, sizeof(KT), GM, D, run, page, kQuant);
   const int RS = geo.rs, U = D / 4;
   extern __shared__ __align__(16) unsigned char smem[];
   KT* ks = reinterpret_cast<KT*>(smem);
@@ -186,6 +282,8 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
   float* ss = reinterpret_cast<float*>(smem + geo.sc);
   float* pt = reinterpret_cast<float*>(smem + geo.p);
   float* cs = reinterpret_cast<float*>(smem + geo.c);
+  float* ksc = reinterpret_cast<float*>(smem + geo.sk);     // int8 pools only
+  float* vsc = ksc + ST * T;
   int* rows = reinterpret_cast<int*>(smem + geo.rows);
   int* slots = reinterpret_cast<int*>(smem + geo.slots);
   // stored-value offset of 16-byte chunk k of row r
@@ -207,7 +305,8 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
   __syncthreads();
 
   // a tile's copies: thread tid moves 16-byte chunk `ck` of rows r0,
-  // r0 + rstep, ... (every thread the same chunks in every tile)
+  // r0 + rstep, ... (every thread the same chunks in every tile); with int8
+  // pools, threads 0..T-1 also stage the tile's scales (plain loads)
   const int rstep = kPagedThreads / geo.cpr;
   const int r0 = tid < rstep * geo.cpr ? tid / geo.cpr : T;
   const int ck = tid % geo.cpr;
@@ -221,6 +320,14 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
       const int bytes = row >= 0 ? 16 : 0;
       cp_async16(kd + chunk(r, ck), k_pool + off, bytes);
       cp_async16(vd + chunk(r, ck), v_pool + off, bytes);
+    }
+    if constexpr (kQuant) {
+      for (int r = tid; r < T; r += kPagedThreads) {
+        const int row = tr[r];
+        const size_t at = (size_t)max(row, 0) * Hkv + h;
+        ksc[(tile % ST) * T + r] = row >= 0 ? to_f32(k_scale[at]) : 0.f;
+        vsc[(tile % ST) * T + r] = row >= 0 ? to_f32(v_scale[at]) : 0.f;
+      }
     }
   };
 #pragma unroll
@@ -246,7 +353,7 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
   const int ts = 32 / lw, sub = lane / lw, u0 = lane % lw;
   float4 acc[8];
 #pragma unroll
-  for (int a = 0; a < 8; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < 8; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     cp_async_wait<ST - 2>();                   // this thread's copies of `tile` landed
@@ -255,6 +362,8 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
     cp_async_commit();
     const KT* kt = ks + (tile % ST) * T * RS;
     const KT* vt = vs + (tile % ST) * T * RS;
+    const float* kts = ksc + (tile % ST) * T;
+    const float* vts = vsc + (tile % ST) * T;
 
     // Q.K^T: warp w takes tokens 8w..8w+7 (+ 32); the 4 lanes of a token
     // split its chunks and sum all GM heads, then add across the 4
@@ -268,6 +377,10 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
       for (int k = c; k < geo.cpr; k += 4) {
         float4 kv[N / 4];
         load16_f32(kt + chunk(t, k), kv);
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int e = 0; e < N / 4; ++e) kv[e] = dequant4<QT>(kv[e], kts[t]);
+        }
         const float* qk = qs + k * N;
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
@@ -317,17 +430,22 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
     __syncthreads();
 
     // P.V: acc = acc * corr + p . V over the lane group's tokens
+    auto v_at = [&](int t, int u) {
+      const float4 v = load4_f32(vt + chunk(t, (4 * u) / N) + (4 * u) % N);
+      if constexpr (kQuant) return dequant4<QT>(v, vts[t]);
+      else return v;
+    };
     if (geo.kd == 1) {
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const float corr = a < geo.hw ? cs[g0 + a] : 0.f;
-        acc[a] = make_float4(acc[a].x * corr, acc[a].y * corr, acc[a].z * corr, acc[a].w * corr);
+      for (int i = 0; i < 8; ++i) {
+        const float corr = i < geo.hw ? cs[g0 + i] : 0.f;
+        acc[i] = make_float4(acc[i].x * corr, acc[i].y * corr, acc[i].z * corr, acc[i].w * corr);
       }
       if (u0 < U) {
 #pragma unroll 2
         for (int i = sub; i < tpw; i += ts) {
           const int t = tg * tpw + i;
-          const float4 v = load4_f32(vt + chunk(t, (4 * u0) / N) + (4 * u0) % N);
+          const float4 v = v_at(t, u0);
           const float* pr = pt + t * GM + g0;
           const float4 p4 = *reinterpret_cast<const float4*>(pr);
           fma4(p4.x, v, acc[0]);
@@ -345,17 +463,16 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
       }
     } else {                                   // kd == 2, hw == 4: acc[2 hh + k]
 #pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const float corr = cs[g0 + a / 2];
-        acc[a] = make_float4(acc[a].x * corr, acc[a].y * corr, acc[a].z * corr, acc[a].w * corr);
+      for (int i = 0; i < 8; ++i) {
+        const float corr = cs[g0 + i / 2];
+        acc[i] = make_float4(acc[i].x * corr, acc[i].y * corr, acc[i].z * corr, acc[i].w * corr);
       }
       const int u1 = lane + 32;
 #pragma unroll 2
       for (int i = 0; i < tpw; ++i) {
         const int t = tg * tpw + i;
-        const float4 v0 = load4_f32(vt + chunk(t, (4 * lane) / N) + (4 * lane) % N);
-        const float4 v1 = u1 < U ? load4_f32(vt + chunk(t, (4 * u1) / N) + (4 * u1) % N)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 v0 = v_at(t, lane);
+        const float4 v1 = u1 < U ? v_at(t, u1) : make_float4(0.f, 0.f, 0.f, 0.f);
         const float4 p4 = *reinterpret_cast<const float4*>(pt + t * GM + g0);
         fma4(p4.x, v0, acc[0]);
         fma4(p4.x, v1, acc[1]);
@@ -374,27 +491,27 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
   // the lane groups' sums, added pairwise in a fixed order
   for (int o = lw; o < 32; o *= 2) {
 #pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      acc[a].x += __shfl_xor_sync(0xffffffffu, acc[a].x, o);
-      acc[a].y += __shfl_xor_sync(0xffffffffu, acc[a].y, o);
-      acc[a].z += __shfl_xor_sync(0xffffffffu, acc[a].z, o);
-      acc[a].w += __shfl_xor_sync(0xffffffffu, acc[a].w, o);
+    for (int i = 0; i < 8; ++i) {
+      acc[i].x += __shfl_xor_sync(0xffffffffu, acc[i].x, o);
+      acc[i].y += __shfl_xor_sync(0xffffffffu, acc[i].y, o);
+      acc[i].z += __shfl_xor_sync(0xffffffffu, acc[i].z, o);
+      acc[i].w += __shfl_xor_sync(0xffffffffu, acc[i].w, o);
     }
   }
   // the token groups' sums, added in group order; m and l of each head
   float* red = reinterpret_cast<float*>(smem);  // n_tg x GM x D f32
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int hh = geo.kd == 1 ? a : a / 2, u = geo.kd == 1 ? u0 : lane + 32 * (a & 1);
+  for (int i = 0; i < 8; ++i) {
+    const int hh = geo.kd == 1 ? i : i / 2, u = geo.kd == 1 ? u0 : lane + 32 * (i & 1);
     if (sub == 0 && hh < geo.hw && u < U)
-      *reinterpret_cast<float4*>(red + ((size_t)tg * GM + g0 + hh) * D + 4 * u) = acc[a];
+      *reinterpret_cast<float4*>(red + ((size_t)tg * GM + g0 + hh) * D + 4 * u) = acc[i];
   }
 #pragma unroll
   for (int r = 0; r < HPW; ++r) {
     const int g = warp + kPagedWarps * r;
     if (lane == 0 && g < G) {
       cs[g] = l[r];
-      if (n_splits > 1) {
+      if (to_ws) {
         float* ml = ws_ml + 2 * ((size_t)split * B * Hq + head0 + g);
         ml[0] = m[r];
         ml[1] = l[r];
@@ -410,7 +527,7 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
       x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
     }
     const size_t at = (head0 + g) * D + d;
-    if (n_splits > 1) {
+    if (to_ws) {
       *reinterpret_cast<float4*>(ws_acc + (size_t)split * B * Hq * D + at) = x;
     } else {
       const float lc = fmaxf(cs[g], 1e-20f);
@@ -425,19 +542,21 @@ paged_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pool,
 // Pass 2: thread i combines element i of the output, (sequence b, q head,
 // column d), over the splits its row's length reached, in split order:
 // m_glob = max m; corr = exp(m - m_glob); l = sum l * corr; acc = sum acc *
-// corr; out = acc / max(l, 1e-20).  Splits that never ran hold m = -inf in
-// `combine_partials` and add exactly 0 there; here they are not read.
+// corr; out = acc / max(l, 1e-20), or, for partials, (m_glob, l, acc) as
+// they are.  Splits that never ran hold m = -inf in `combine_partials` and
+// add exactly 0 there; here they are not read.
 constexpr int kBatch = 16;
 
 template <typename QT>
 __global__ void __launch_bounds__(kThreads)
 paged_combine_kernel(const float* __restrict__ ws_ml, const float* __restrict__ ws_acc,
-                     const int* __restrict__ lengths, QT* __restrict__ out, int B, int Hq,
-                     int D, int n_tok_max, int run) {
+                     const int* __restrict__ lengths, QT* __restrict__ out,
+                     float* __restrict__ out_ml, float* __restrict__ out_acc, int B, int Hq,
+                     int D, int page, int P, int run, int kvr, int my, bool partial) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= B * Hq * D) return;
   const int row = i / D, d = i - row * D, b = row / Hq;
-  const int n_tok = min(max(lengths[b], 0), n_tok_max);
+  const int n_tok = local_tokens(lengths[b], page, P, kvr, my);
   const int n_live = (n_tok + run - 1) / run;
   const size_t per_split = (size_t)B * Hq;
   // the first kBatch splits' (m, l, acc) are read in one go, the rest (long
@@ -473,64 +592,71 @@ paged_combine_kernel(const float* __restrict__ ws_ml, const float* __restrict__ 
       acc = __fadd_rn(acc, __fmul_rn(x[j], corr));
     }
   }
-  store_out(out + i, acc / fmaxf(l, 1e-20f));
+  if (partial) {
+    out_acc[i] = acc;
+    if (d == 0) {
+      out_ml[2 * row] = m_glob;
+      out_ml[2 * row + 1] = l;
+    }
+  } else {
+    store_out(out + i, acc / fmaxf(l, 1e-20f));
+  }
 }
 
 template <typename QT, typename KT, int T, int GM>
-cudaError_t launch_paged(const void* q, const void* k_pool, const void* v_pool,
-                         const int* block_table, const int* lengths, void* out, float* ws_ml,
-                         float* ws_acc, int B, int Hkv, int G, int D, int page, int P, int run,
-                         int n_splits, float scale, cudaStream_t stream) {
+cudaError_t launch_paged(const PagedArgs& a, cudaStream_t stream) {
   constexpr int ST = kStages;
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   auto kernel = paged_split_kernel<QT, KT, T, ST, GM>;
-  const size_t smem = Geometry(T, ST, 16 / sizeof(KT), sizeof(KT), GM, D, run, page).total;
+  const size_t smem =
+      Geometry(T, ST, 16 / sizeof(KT), sizeof(KT), GM, a.D, a.run, a.page, kQuant).total;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, n_splits, B);
+  const bool direct = a.n_splits == 1;         // partials of one split: the outputs
+  dim3 grid(a.Hkv, a.n_splits, a.B);
   kernel<<<grid, kPagedThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k_pool),
-      static_cast<const KT*>(v_pool), block_table, lengths, static_cast<QT*>(out), ws_ml,
-      ws_acc, B, Hkv, G, D, page, P, run, n_splits, scale);
+      static_cast<const QT*>(a.q), static_cast<const KT*>(a.k_pool),
+      static_cast<const KT*>(a.v_pool), static_cast<const QT*>(a.k_scale),
+      static_cast<const QT*>(a.v_scale), a.block_table, a.lengths, static_cast<QT*>(a.out),
+      direct ? a.out_ml : a.ws_ml, direct ? a.out_acc : a.ws_acc, a.B, a.Hkv, a.G, a.D,
+      a.page, a.P, a.run, a.n_splits, a.kvr, a.my, a.partial != 0, a.scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return err;
-  const int n_out = B * Hkv * G * D;
+  if (err != cudaSuccess || direct) return err;
+  const int n_out = a.B * a.Hkv * a.G * a.D;
   paged_combine_kernel<QT><<<(n_out + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      ws_ml, ws_acc, lengths, static_cast<QT*>(out), B, Hkv * G, D, P * page, run);
+      a.ws_ml, a.ws_acc, a.lengths, static_cast<QT*>(a.out), a.out_ml, a.out_acc, a.B,
+      a.Hkv * a.G, a.D, a.page, a.P, a.run, a.kvr, a.my, a.partial != 0);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KT, int T>
-cudaError_t launch_heads(const void* q, const void* k_pool, const void* v_pool,
-                         const int* block_table, const int* lengths, void* out, float* ws_ml,
-                         float* ws_acc, int B, int Hkv, int G, int D, int page, int P, int run,
-                         int n_splits, float scale, cudaStream_t stream) {
-  if (G <= 4)
-    return launch_paged<QT, KT, T, 4>(q, k_pool, v_pool, block_table, lengths, out, ws_ml,
-                                      ws_acc, B, Hkv, G, D, page, P, run, n_splits, scale,
-                                      stream);
-  if (G <= 8)
-    return launch_paged<QT, KT, T, 8>(q, k_pool, v_pool, block_table, lengths, out, ws_ml,
-                                      ws_acc, B, Hkv, G, D, page, P, run, n_splits, scale,
-                                      stream);
-  return launch_paged<QT, KT, T, 16>(q, k_pool, v_pool, block_table, lengths, out, ws_ml,
-                                     ws_acc, B, Hkv, G, D, page, P, run, n_splits, scale,
-                                     stream);
+cudaError_t launch_heads(const PagedArgs& a, cudaStream_t stream) {
+  if (a.G <= 4) return launch_paged<QT, KT, T, 4>(a, stream);
+  if (a.G <= 8) return launch_paged<QT, KT, T, 8>(a, stream);
+  return launch_paged<QT, KT, T, 16>(a, stream);
 }
 
 template <typename QT, typename KT>
-cudaError_t launch_tile(int tile, const void* q, const void* k_pool, const void* v_pool,
-                        const int* block_table, const int* lengths, void* out, float* ws_ml,
-                        float* ws_acc, int B, int Hkv, int G, int D, int page, int P, int run,
-                        int n_splits, float scale, cudaStream_t stream) {
-  if (tile == 32)
-    return launch_heads<QT, KT, 32>(q, k_pool, v_pool, block_table, lengths, out, ws_ml,
-                                    ws_acc, B, Hkv, G, D, page, P, run, n_splits, scale,
-                                    stream);
-  if (tile == 64)
-    return launch_heads<QT, KT, 64>(q, k_pool, v_pool, block_table, lengths, out, ws_ml,
-                                    ws_acc, B, Hkv, G, D, page, P, run, n_splits, scale,
-                                    stream);
+cudaError_t launch_tile(int tile, const PagedArgs& a, cudaStream_t stream) {
+  if (tile == 32) return launch_heads<QT, KT, 32>(a, stream);
+  if (tile == 64) return launch_heads<QT, KT, 64>(a, stream);
   return cudaErrorInvalidValue;
+}
+
+template <typename QT>
+cudaError_t launch_pool(int tile, int kv_dtype, const PagedArgs& a, cudaStream_t stream) {
+  if (kv_dtype == kF32) return launch_tile<QT, float>(tile, a, stream);
+  if (kv_dtype == kBF16) return launch_tile<QT, __nv_bfloat16>(tile, a, stream);
+  if (kv_dtype == kI8 && a.k_scale != nullptr && a.v_scale != nullptr)
+    return launch_tile<QT, int8_t>(tile, a, stream);
+  return cudaErrorInvalidValue;
+}
+
+inline int launch(int tile, int q_dtype, int kv_dtype, const PagedArgs& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == kF32) return static_cast<int>(launch_pool<float>(tile, kv_dtype, a, s));
+  if (q_dtype == kBF16) return static_cast<int>(launch_pool<__nv_bfloat16>(tile, kv_dtype, a, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace valet
@@ -547,24 +673,47 @@ extern "C" int valet_paged_attention(const void* q, const void* k_pool,
                                      void* ws_acc, int B, int Hkv, int G, int D, int page,
                                      int P, int tile, int run, int n_splits, int q_dtype,
                                      int kv_dtype, float scale, void* stream) {
-  using namespace valet;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_table);
-  const int* ln = static_cast<const int*>(lengths);
-  float* ml = static_cast<float*>(ws_ml);
-  float* acc = static_cast<float*>(ws_acc);
-  if (q_dtype == kF32 && kv_dtype == kF32)
-    return launch_tile<float, float>(tile, q, k_pool, v_pool, bt, ln, out, ml, acc, B, Hkv,
-                                     G, D, page, P, run, n_splits, scale, s);
-  if (q_dtype == kF32 && kv_dtype == kBF16)
-    return launch_tile<float, __nv_bfloat16>(tile, q, k_pool, v_pool, bt, ln, out, ml, acc,
-                                             B, Hkv, G, D, page, P, run, n_splits, scale, s);
-  if (q_dtype == kBF16 && kv_dtype == kF32)
-    return launch_tile<__nv_bfloat16, float>(tile, q, k_pool, v_pool, bt, ln, out, ml, acc,
-                                             B, Hkv, G, D, page, P, run, n_splits, scale, s);
-  if (q_dtype == kBF16 && kv_dtype == kBF16)
-    return launch_tile<__nv_bfloat16, __nv_bfloat16>(tile, q, k_pool, v_pool, bt, ln, out,
-                                                     ml, acc, B, Hkv, G, D, page, P, run,
-                                                     n_splits, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  valet::PagedArgs a{};
+  a.q = q;
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.block_table = static_cast<const int*>(block_table);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = out;
+  a.ws_ml = static_cast<float*>(ws_ml);
+  a.ws_acc = static_cast<float*>(ws_acc);
+  a.B = B, a.Hkv = Hkv, a.G = G, a.D = D, a.page = page, a.P = P;
+  a.run = run, a.n_splits = n_splits, a.kvr = 1, a.my = 0, a.partial = 0;
+  a.scale = scale;
+  return valet::launch(tile, q_dtype, kv_dtype, a, stream);
+}
+
+// One peer's f32 partials (m, l, acc) over its pages of a pool sharded
+// round-robin over `kvr` ranks (this one `my`): block_table (B, P) holds the
+// rank's local pages, local page j holds absolute positions (j * kvr + my) *
+// page + o, and positions below `lengths` are valid.  out_ml: (B, Hkv*G, 2)
+// f32 (m, l); out_acc: (B, Hkv*G, D) f32; the workspace as above.  kv_dtype
+// 2 (int8) takes k_scale/v_scale (n_slots, page, Hkv) in q's dtype.
+extern "C" int valet_paged_attention_partials(
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+    const void* v_scale, const void* block_table, const void* lengths, void* out_ml,
+    void* out_acc, void* ws_ml, void* ws_acc, int B, int Hkv, int G, int D, int page, int P,
+    int tile, int run, int n_splits, int kvr, int my, int q_dtype, int kv_dtype, float scale,
+    void* stream) {
+  valet::PagedArgs a{};
+  a.q = q;
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.block_table = static_cast<const int*>(block_table);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out_ml = static_cast<float*>(out_ml);
+  a.out_acc = static_cast<float*>(out_acc);
+  a.ws_ml = static_cast<float*>(ws_ml);
+  a.ws_acc = static_cast<float*>(ws_acc);
+  a.B = B, a.Hkv = Hkv, a.G = G, a.D = D, a.page = page, a.P = P;
+  a.run = run, a.n_splits = n_splits, a.kvr = kvr, a.my = my, a.partial = 1;
+  a.scale = scale;
+  return valet::launch(tile, q_dtype, kv_dtype, a, stream);
 }

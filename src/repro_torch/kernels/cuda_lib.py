@@ -98,6 +98,8 @@ def load() -> ctypes.CDLL:
     lib.valet_paged_attention.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                           i, i, i, i, i, i, f, p]
     lib.valet_paged_attention.restype = i
+    lib.valet_paged_attention_partials.argtypes = [p] * 11 + [i] * 13 + [f, p]
+    lib.valet_paged_attention_partials.restype = i
     lib.valet_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
                                           f, p]
     lib.valet_flash_attention.restype = i

@@ -27,6 +27,15 @@ as ``combine_partials`` does.  ``split_plan`` picks the run from static
 shapes only -- never from the lengths -- so a row's output does not depend
 on the other rows of its batch (exactness under pressure compares runs
 whose batches differ) and the launch grid is set without reading the device.
+
+``paged_attention_partials`` is the kernel's entry for one peer of a pool
+sharded round-robin over ``kvr`` ranks (``launch/serve_step.py``): its block
+table holds the rank's local pages, local page ``j`` of rank ``rank`` holds
+absolute positions ``(j * kvr + rank) * page + o``, and it returns the f32
+partial softmax ``(m, l, acc)`` for ``combine_partials_psum`` to combine
+across the ranks.  Its pools may be int8 with per-(slot, position, head)
+scales in q's dtype.  ``paged_attention_partials.launches`` counts its calls
+of the kernel.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from repro_torch.models.attention import combine_partials, decode_partial
 
 MAX_GROUP = 16       # query heads per KV head the kernel takes
 MAX_HEAD_DIM = 256
+INT8_CODE = 2      # the C interface's code of an int8 pool
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, lengths):
@@ -63,10 +73,14 @@ MIN_RUN = 64         # tokens per split: at least this ...
 MAX_RUN = 512        # ... and at most this (its per-token rows in shared memory)
 
 
+def _bits(dtype) -> int:
+    return (torch.iinfo if dtype == torch.int8 else torch.finfo)(dtype).bits
+
+
 def tile_tokens(d: int, kv_dtype) -> int:
     """Tokens the kernel stages per step: 64 when a token's row of K is at
     most 256 bytes (so that a tile carries enough bytes), else 32."""
-    return 64 if d * torch.finfo(kv_dtype).bits // 8 <= 256 else 32
+    return 64 if d * _bits(kv_dtype) // 8 <= 256 else 32
 
 
 def _check_page(page: int) -> None:
@@ -104,9 +118,13 @@ def plan_for(q, k_pool, block_table) -> tuple[int, int]:
                       q.dtype, k_pool.dtype)
 
 
-def _check(q, k_pool, v_pool, block_table, lengths):
+def _check(q, k_pool, v_pool, block_table, lengths, scales=()):
+    """What the kernel takes.  ``scales``: an int8 pool's (k_scale,
+    v_scale), each (n_slots, page, Hkv) in q's dtype; none for a float
+    pool."""
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_table", block_table), ("lengths", lengths)):
+                    ("block_table", block_table), ("lengths", lengths),
+                    *(("scale", sc) for sc in scales)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -128,8 +146,19 @@ def _check(q, k_pool, v_pool, block_table, lengths):
     if block_table.shape[0] != b or tuple(lengths.shape) != (b,):
         raise ValueError("block_table/lengths batch does not match q")
     _check_page(page)
+    quant = k_pool.dtype == torch.int8
+    if quant != bool(scales):
+        raise ValueError("an int8 pool takes scales, a float pool none")
+    if quant and d % 16:
+        raise ValueError(f"an int8 pool needs head_dim a multiple of 16, not {d}")
+    for sc in scales:
+        if tuple(sc.shape) != (n_slots, page, hkv) or sc.dtype != q.dtype:
+            raise ValueError(f"scales must be (n_slots, page, Hkv) in q's "
+                             f"dtype, got {tuple(sc.shape)} {sc.dtype}")
+    cuda_lib.dtype_code(q.dtype)
+    if not quant:
+        cuda_lib.dtype_code(k_pool.dtype)
     for t in (q, k_pool, v_pool):
-        cuda_lib.dtype_code(t.dtype)
         if t.data_ptr() % 16:
             raise ValueError("kernel needs 16-byte aligned tensors")
 
@@ -167,3 +196,84 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths):
 
 
 paged_attention.launches = 0
+
+
+# --------------------------------------------------------------------------
+# One peer's partials over its round-robin share of the pages
+# --------------------------------------------------------------------------
+
+def _widen(pool, scale, safe, dtype):
+    """The pages ``safe`` of a pool, int8 values times their scale in
+    ``dtype`` as the reference widens them (``launch/serve_step.py``)."""
+    pages = pool[safe]
+    if scale is None:
+        return pages
+    return pages.to(dtype) * scale[safe][..., None]
+
+
+def paged_attention_partials_plain(q, k_pool, v_pool, block_table, lengths,
+                                   *, kvr=1, rank=0, k_scale=None,
+                                   v_scale=None):
+    """Gather the rank's pages, then ``decode_partial`` at their absolute
+    positions: the partial entry's plain version."""
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pool.shape
+    p = block_table.shape[1]
+    bt = block_table.long()
+    safe = bt.clamp(min=0)
+    keys = _widen(k_pool, k_scale, safe, q.dtype).reshape(b, p * page, hkv, d)
+    values = _widen(v_pool, v_scale, safe, q.dtype).reshape(b, p * page, hkv, d)
+    base = (torch.arange(p, device=q.device) * kvr + rank) * page
+    pos = (base[:, None] + torch.arange(page, device=q.device)).reshape(-1)
+    valid = (pos[None, :] < lengths.long()[:, None]) & \
+        (bt >= 0).repeat_interleave(page, dim=1)
+    return decode_partial(q, keys, values, valid)
+
+
+def paged_attention_partials(q, k_pool, v_pool, block_table, lengths, *,
+                             kvr=1, rank=0, k_scale=None, v_scale=None):
+    """One peer's partial softmax over its pages of a sharded pool.
+
+    q: (B, Hq, D); pools: (n_slots, page, Hkv, D), f32, bf16, or int8 with
+    ``k_scale``/``v_scale`` (n_slots, page, Hkv) in q's dtype; block_table:
+    (B, P) the rank's local pages (-1 pad); lengths: (B,) int32, valid
+    positions are those below it.  Returns f32 ``(m, l, acc)`` of shapes
+    (B, Hkv, G), (B, Hkv, G) and (B, Hkv, G, D), as ``decode_partial``.
+    """
+    scales = () if k_scale is None else (k_scale, v_scale)
+    _check(q, k_pool, v_pool, block_table, lengths, scales)
+    if not 0 <= rank < kvr:
+        raise ValueError(f"rank {rank} is not one of {kvr} ranks")
+    if not q.is_cuda:
+        return paged_attention_partials_plain(
+            q, k_pool, v_pool, block_table, lengths, kvr=kvr, rank=rank,
+            k_scale=k_scale, v_scale=v_scale)
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pool.shape
+    g = hq // hkv
+    run, n_splits = plan_for(q, k_pool, block_table)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    ml = torch.empty((b, hq, 2), **f32)
+    acc = torch.empty((b, hq, d), **f32)
+    ws_ml = torch.empty((n_splits, b, hq, 2) if n_splits > 1 else (0,), **f32)
+    ws_acc = torch.empty((n_splits, b, hq, d) if n_splits > 1 else (0,), **f32)
+    quant = k_pool.dtype == torch.int8
+    lib = cuda_lib.load()
+    err = lib.valet_paged_attention_partials(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
+        block_table.data_ptr(), lengths.data_ptr(), ml.data_ptr(),
+        acc.data_ptr(), ws_ml.data_ptr(), ws_acc.data_ptr(),
+        b, hkv, g, d, page, block_table.shape[1],
+        tile_tokens(d, k_pool.dtype), run, n_splits, kvr, rank,
+        cuda_lib.dtype_code(q.dtype),
+        INT8_CODE if quant else cuda_lib.dtype_code(k_pool.dtype),
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(err, "paged_attention_partials")
+    paged_attention_partials.launches += 1
+    return (ml[..., 0].reshape(b, hkv, g), ml[..., 1].reshape(b, hkv, g),
+            acc.reshape(b, hkv, g, d))
+
+
+paged_attention_partials.launches = 0

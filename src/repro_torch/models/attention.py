@@ -9,7 +9,9 @@
   block is recomputed in the backward); prefill goes through the
   hand-written kernel (``repro_torch.kernels.flash_attention``).
 * ``decode_partial`` / ``combine_partials`` — flash-decoding: a partial
-  softmax over a slice of the KV working set plus an exact combine.
+  softmax over a slice of the KV working set plus an exact combine;
+  ``combine_partials_psum`` is the same combine across the ranks of a mesh
+  (``launch/serve_step.py``).
 
 Layouts follow the reference: q (B, S, Hq, D), k/v (B, S, Hkv, D).
 """
@@ -206,6 +208,12 @@ def decode_partial(q, keys, values, valid):
     return m, l, acc
 
 
+def _normalise(l_glob, acc_glob, out_dtype):
+    """(B, K, G) and (B, K, G, D) combined sums -> (B, Hq, D)."""
+    out = acc_glob / l_glob.clamp(min=1e-20)[..., None]
+    return out.reshape(out.shape[0], -1, out.shape[-1]).to(out_dtype)
+
+
 def combine_partials(partials, out_dtype):
     """Exact softmax combine of stacked partials.
 
@@ -217,6 +225,17 @@ def combine_partials(partials, out_dtype):
     corr = torch.exp(m - m_glob[None])
     l_glob = (l * corr).sum(dim=0)
     acc_glob = (acc * corr[..., None]).sum(dim=0)
-    out = acc_glob / l_glob.clamp(min=1e-20)[..., None]
-    b = m.shape[1]
-    return out.reshape(b, -1, acc.shape[-1]).to(out_dtype)
+    return _normalise(l_glob, acc_glob, out_dtype)
+
+
+def combine_partials_psum(m, l, acc, axis_name, out_dtype, mesh):
+    """Same combine, across the ranks of ``mesh`` along ``axis_name`` (one
+    axis or a tuple): a max all-reduce of m, then one sum all-reduce of
+    ``l * corr`` and ``acc * corr`` packed in one buffer."""
+    m_glob = mesh.all_reduce(m.clone(), axis_name, "max")
+    corr = torch.exp(m - m_glob)
+    lw, aw = l * corr, acc * corr[..., None]
+    packed = mesh.all_reduce(torch.cat([lw.reshape(-1), aw.reshape(-1)]),
+                             axis_name, "sum")
+    return _normalise(packed[:lw.numel()].reshape(lw.shape),
+                      packed[lw.numel():].reshape(aw.shape), out_dtype)

@@ -29,7 +29,10 @@ def records_grad(*tensors) -> bool:
 def normal_(t: torch.Tensor, generator: torch.Generator,
             scale: float = 0.02) -> torch.Tensor:
     """Fill ``t`` in place with N(0, scale^2) drawn in f32 from ``generator``
-    (which must live on ``t``'s device), rounded once to ``t``'s dtype."""
+    (which must live on ``t``'s device), rounded once to ``t``'s dtype.  A
+    tensor on the ``meta`` device (shapes only) is left as it is."""
+    if t.device.type == "meta":
+        return t
     if t.dtype == torch.float32:
         return t.normal_(0.0, scale, generator=generator)
     return t.copy_(torch.empty(t.shape, dtype=torch.float32, device=t.device)

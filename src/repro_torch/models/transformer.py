@@ -13,9 +13,14 @@ parallel attention and SSD heads), ``xattn`` (llama-vision's gated
 cross-attention layers), ``enc`` and ``dec`` (whisper).  ``lm_loss`` is the
 training objective: the mean next-token NLL over sequence chunks, with
 each layer and each loss chunk recomputed in the backward when
-``ParallelCtx.remat`` is set.  There is no mesh: sharding (and the
-vocab-sharded loss) comes with the multi-device launch layer (ROADMAP
-Queue 1 item 13).
+``ParallelCtx.remat`` is set.
+
+Sharding is expressed as in the reference: ``param_pspecs`` gives each
+parameter a placement (per dim, a mesh axis name or None) keyed on its path,
+and ``ParallelCtx`` carries the rank mesh (``launch/mesh.py``) and its model
+axis.  The sharded serve step (``launch/serve_step.py``) reads
+them; the forward, the prefill and the loss here still run on one device
+(the vocab-sharded loss and the sharded forward are ROADMAP items 13b-13c).
 """
 from __future__ import annotations
 
@@ -41,7 +46,11 @@ from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
 
 @dataclass(frozen=True)
 class ParallelCtx:
-    """Model-execution knobs (single device; no mesh yet)."""
+    """Rank mesh + model axis + model-execution knobs.  The reference's
+    batch axes (``dp_axes``, ``dp``, ``dp_size``) come with the sharded
+    forward that reads them (ROADMAP item 13b)."""
+    mesh: Any = None            # a launch.mesh.Mesh, or None on one device
+    model_axis: str = "model"   # the axis of the placements' "model" entries
     remat: bool = True          # recompute each layer and loss chunk in the
                                 # backward (read only under autograd)
     q_block: int = 512
@@ -243,6 +252,87 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
             for seg in encoder_segments(cfg)]
         params["enc_ln"] = torch.zeros((d,), dtype=dtype, device=device)
     return params
+
+
+# --------------------------------------------------------------------------
+# Placements (keyed on parameter path)
+# --------------------------------------------------------------------------
+
+# (path fragment, placement of the trailing dims): a mesh axis name shards
+# that dim over the axis, None keeps it whole
+_SPEC_RULES = [
+    ("embed", ("model", None)),
+    ("unembed", (None, "model")),
+    ("experts/wg", ("model", None, None)),
+    ("experts/wu", ("model", None, None)),
+    ("experts/wd", ("model", None, None)),
+    ("router", (None, None)),
+    ("attn/wq", (None, "model")),
+    ("attn/wk", (None, "model")),
+    ("attn/wv", (None, "model")),
+    ("attn/wo", ("model", None)),
+    ("xattn/wq", (None, "model")),
+    ("xattn/wk", (None, "model")),
+    ("xattn/wv", (None, "model")),
+    ("xattn/wo", ("model", None)),
+    ("mlp/wgu", (None, "model")),
+    ("mlp/wd", ("model", None)),
+    ("mlp/wi", (None, "model")),
+    ("mlp/wo", ("model", None)),
+    ("shared/wgu", (None, "model")),
+    ("shared/wd", ("model", None)),
+    ("ssm/wz", (None, "model")),
+    ("ssm/wx", (None, "model")),
+    ("ssm/wdt", (None, "model")),
+    ("ssm/wbc", (None, None)),
+    ("ssm/conv_x", (None, "model")),
+    ("ssm/out_proj", ("model", None)),
+    ("ssm/gate_norm", ("model",)),
+    ("ssm/A_log", ("model",)),
+    ("ssm/D", ("model",)),
+    ("ssm/dt_bias", ("model",)),
+]
+
+
+def _path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a params tree (dicts and lists; a tuple is a
+    leaf, so that a placement tree maps too)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_pspecs(params_shape, cfg: ArchConfig, model_size: int = 16):
+    """The placement tree of a params (shape-)tree: per leaf, a tuple with
+    one entry per dim (a mesh axis name or None).
+
+    Dimensions that don't divide the model-axis size fall back to
+    replication (e.g. hymba's 50 SSD heads, 25 attention heads); K/V
+    projections are replicated when the KV heads don't divide it."""
+    kv_shardable = cfg.n_kv_heads % model_size == 0 if cfg.n_kv_heads else True
+    kv_paths = ("attn/wk", "attn/wv", "xattn/wk", "xattn/wv")
+
+    def spec_for(path, leaf):
+        ps = _path_str(path)
+        ndim = len(leaf.shape)
+        if not kv_shardable and ps.endswith(kv_paths):
+            return (None,) * ndim
+        for frag, spec in _SPEC_RULES:
+            if frag in ps:
+                parts = [None] * (ndim - len(spec)) + list(spec)
+                for i, ax in enumerate(parts):
+                    if ax == "model" and leaf.shape[i] % model_size != 0:
+                        parts[i] = None
+                return tuple(parts)
+        return (None,) * ndim
+
+    return _map_with_path(spec_for, params_shape)
 
 
 # --------------------------------------------------------------------------

@@ -361,3 +361,82 @@ def test_cuda_train_step_matches_cpu(cuda, name):
     for a, b in zip(bridge.tree_flatten(cs.mu)[0], bridge.tree_flatten(gs.mu)[0]):
         torch.testing.assert_close(b.cpu(), a, rtol=0,
                                    atol=1e-4 * float(a.abs().max()) + 1e-30)
+
+
+# --------------------------------------------------------------------------
+# The partial entry: one peer's share of a pool split round-robin over kvr
+# --------------------------------------------------------------------------
+
+def split_table(bt, kvr, rank):
+    """Rank ``rank``'s local table: page pg of each row is rank pg % kvr's
+    local page pg // kvr."""
+    local = bt[:, rank::kvr]
+    return np.ascontiguousarray(local) if local.size else \
+        np.full((bt.shape[0], 1), -1, np.int32)
+
+
+def partial_args(arrays, cuda, q_dtype, pool, kvr, rank, seed=0):
+    """Card tensors of one rank's partial call; an int8 pool gets random
+    values and per-(slot, position, head) scales in q's dtype."""
+    q, kp, vp, bt, lens = arrays
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dt)
+    kw = {}
+    if pool == "int8":
+        rng = np.random.default_rng(seed)
+        kp = rng.integers(-127, 128, size=kp.shape).astype(np.int8)
+        vp = rng.integers(-127, 128, size=vp.shape).astype(np.int8)
+        kw = {name: t(rng.uniform(1e-3, 3e-2, size=kp.shape[:-1]), TORCH[q_dtype])
+              for name in ("k_scale", "v_scale")}
+        kp, vp = t(kp, torch.int8), t(vp, torch.int8)
+    else:
+        kp, vp = t(kp, TORCH[pool]), t(vp, TORCH[pool])
+    return (t(q, TORCH[q_dtype]), kp, vp,
+            t(split_table(bt, kvr, rank), torch.int32),
+            t(lens, torch.int32)), dict(kvr=kvr, rank=rank, **kw)
+
+
+PARTIAL_CASES = {k: PAGED_SPLIT_CASES[k] for k in ("granite", "gemma3-global", "some-empty")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kvr", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", list(PARTIAL_CASES))
+def test_cuda_paged_partials_match_plain(cuda, case, kvr, pool, q_dtype):
+    b, hq, hkv, d, page, n_pages, lens = PARTIAL_CASES[case]
+    rank = kvr * 5 // 8
+    args, kw = partial_args(paged_rows(b, hq, hkv, d, page, n_pages, lens), cuda,
+                            q_dtype, pool, kvr, rank)
+    n = pa.paged_attention_partials.launches
+    got = pa.paged_attention_partials(*args, **kw)
+    assert pa.paged_attention_partials.launches == n + 1
+    want = pa.paged_attention_partials_plain(*args, **kw)
+    tol = 1e-4 if "bfloat16" not in (q_dtype, pool) else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    # a second call gives the same bits
+    for g, again in zip(got, pa.paged_attention_partials(*args, **kw)):
+        assert torch.equal(g, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvr", [2, 4, 8])
+@pytest.mark.parametrize("case", ["granite", "gemma3-global"])
+def test_cuda_paged_partials_combine_to_unsplit_call(cuda, case, kvr, dtype):
+    """Every rank's partials, combined over the ranks, are one
+    ``paged_attention`` call over the unsplit table."""
+    from repro_torch.models.attention import combine_partials
+    b, hq, hkv, d, page, n_pages, lens = PAGED_SPLIT_CASES[case]
+    arrays = paged_rows(b, hq, hkv, d, page, n_pages, lens)
+    parts = []
+    for rank in range(kvr):
+        args, kw = partial_args(arrays, cuda, dtype, dtype, kvr, rank)
+        parts.append(pa.paged_attention_partials(*args, **kw))
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    got = combine_partials((m, l, acc), TORCH[dtype])
+    want = pa.paged_attention(*on_card(arrays, cuda, dtype, dtype))
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

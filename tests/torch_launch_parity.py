@@ -1,0 +1,337 @@
+"""Shared helpers of the launch-layer parity tests (``test_torch_launch_*.py``).
+
+The reference's sharded path runs in a subprocess with fake CPU devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=N``) on a mesh with
+Auto axes (``jax.sharding.Mesh`` over the reshaped device list; under jax
+0.9 ``jax.make_mesh`` builds Explicit axes, which ``with_sharding_constraint``
+rejects).  It hands its arrays back through an ``.npz``.  The port's side
+runs as gloo ranks spawned here, each on its local shards; each rank saves
+what it computed, and the parent puts the global arrays back together.
+Every run has a time limit and fails rather than hangs.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = str(ROOT / "src")
+JOIN_SECONDS = 120
+
+# step inputs of the serve-step tests: batch 4 over data 2, pages of 4 over
+# model 2, 8 teacher-forced steps from these lengths (test_sharding.py's
+# pattern: page pg of sequence b on KV rank pg % kvr, local page pg // kvr)
+LENGTHS0 = (21, 13, 30, 9)
+STEPS = 8
+
+
+# --------------------------------------------------------------------------
+# Trees <-> flat npz keys
+# --------------------------------------------------------------------------
+
+def flatten(tree, prefix):
+    """{"prefix/a/0/b": array} for a tree of dicts and lists."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, f"{path}/{i}")
+        else:
+            out[path] = np.asarray(t)
+    walk(tree, prefix)
+    return out
+
+
+def unflatten(arrays, prefix):
+    """Inverse of ``flatten`` (dicts with keys 0..n-1 become lists)."""
+    root = {}
+    for key, a in arrays.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        parts = key[len(prefix) + 1:].split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(a)
+
+    def fix(t):
+        if not isinstance(t, dict):
+            return t
+        t = {k: fix(v) for k, v in t.items()}
+        if t and all(k.isdigit() for k in t):
+            return [t[str(i)] for i in range(len(t))]
+        return t
+    return fix(root)
+
+
+# --------------------------------------------------------------------------
+# The reference, in a subprocess with fake devices
+# --------------------------------------------------------------------------
+
+PRELUDE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {tests!r})
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh
+from torch_launch_parity import flatten, unflatten
+"""
+
+
+def run_reference(body: str, n_devices: int, workdir: Path,
+                  timeout: int = 240) -> dict:
+    """Run ``body`` after ``PRELUDE`` with ``n_devices`` fake devices; it
+    reads ``IN`` (a path) and writes ``OUT`` (an npz); returns OUT's
+    arrays."""
+    script = workdir / "reference.py"
+    out = workdir / "reference_out.npz"
+    script.write_text(PRELUDE.format(n=n_devices, src=SRC,
+                                     tests=str(ROOT / "tests"))
+                      + f"IN = {str(workdir / 'inputs.npz')!r}\n"
+                      + f"OUT = {str(out)!r}\n" + textwrap.dedent(body))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    res = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=timeout, env=env, cwd=workdir)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return dict(np.load(out))
+
+
+# --------------------------------------------------------------------------
+# The port, as gloo ranks
+# --------------------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, fn, args):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=JOIN_SECONDS))
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, *args, seconds: int = JOIN_SECONDS):
+    """Run ``fn(rank, *args)`` in ``world`` spawned gloo ranks; fail if one
+    raises or the ranks outlast ``seconds`` (they are killed then)."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_rank_main, args=(world, _free_port(), fn, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + seconds
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{world} ranks outlasted {seconds} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def rank_out(workdir: Path, rank: int) -> Path:
+    return workdir / f"rank{rank}.npz"
+
+
+def mesh_coords(rank, shape):
+    return dict(zip(("data", "model"), np.unravel_index(rank, shape)))
+
+
+def assemble(per_rank, spec, mesh_shape, global_shape):
+    """The global array from each rank's block under ``spec`` (a placement
+    tuple); replicated copies must agree bit for bit."""
+    names = ("data", "model")
+    sizes = dict(zip(names, mesh_shape))
+    out = np.full(global_shape, np.nan, dtype=per_rank[0].dtype) \
+        if per_rank[0].dtype.kind == "f" else np.zeros(global_shape, per_rank[0].dtype)
+    seen = {}
+    lead = len(global_shape) - len(spec)
+    for rank, block in enumerate(per_rank):
+        coords = mesh_coords(rank, mesh_shape)
+        index = [slice(None)] * lead
+        for dim, axes in enumerate(spec, start=lead):
+            if axes is None:
+                index.append(slice(None))
+                continue
+            axes = (axes,) if isinstance(axes, str) else axes
+            n, i = 1, 0
+            for a in names:
+                if a in axes:
+                    n, i = n * sizes[a], i * sizes[a] + coords[a]
+            step = global_shape[dim] // n
+            index.append(slice(i * step, (i + 1) * step))
+        key = tuple((s.start, s.stop) for s in index)
+        if key in seen:
+            assert np.array_equal(seen[key], block, equal_nan=True), \
+                f"replicas of block {key} differ"
+        seen[key] = block
+        out[tuple(index)] = block
+    return out
+
+
+# --------------------------------------------------------------------------
+# Step inputs: pages round-robin over the KV ranks
+# --------------------------------------------------------------------------
+
+def step_inputs(lengths0, steps, *, dp, kvr, page, p_loc, slots):
+    """Block table (dp, kvr, B_loc, p_loc) holding every page the sequences
+    reach in ``steps`` steps, page pg of sequence b on KV rank pg % kvr as
+    local page pg // kvr, slots handed out in order per (dp, rank); and per
+    step the append targets (app_rank, app_slot, app_off) and lengths."""
+    b = len(lengths0)
+    b_loc = b // dp
+    bt = np.full((dp, kvr, b_loc, p_loc), -1, np.int32)
+    used = np.zeros((dp, kvr), int)
+    for i in range(b):
+        di, bl = divmod(i, b_loc)
+        for pg in range((lengths0[i] + steps - 1) // page + 1):
+            r, j = pg % kvr, pg // kvr
+            bt[di, r, bl, j] = used[di, r]
+            used[di, r] += 1
+    assert used.max() <= slots, "more pages than slots"
+    per_step = []
+    for t in range(steps):
+        cur = np.asarray(lengths0, np.int32) + t
+        pg = cur // page
+        rank = (pg % kvr).astype(np.int32)
+        slot = np.array([bt[i // b_loc, rank[i], i % b_loc, pg[i] // kvr]
+                         for i in range(b)], np.int32)
+        per_step.append(dict(app_rank=rank, app_slot=slot,
+                             app_off=(cur % page).astype(np.int32),
+                             lengths=cur.astype(np.int32)))
+    return bt, per_step
+
+
+# --------------------------------------------------------------------------
+# Rank bodies (module level: the spawned ranks import them from here)
+# --------------------------------------------------------------------------
+
+SERVE_SHAPE = dict(name="parity", seq_len=64, global_batch=4, kind="decode")
+SERVE_PAGE = 4
+
+
+def serve_config(name, n_layers):
+    from repro_torch.configs import ARCHS, reduced, replace
+    cfg = reduced(ARCHS[name])
+    return replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def serve_rank(rank, workdir, archs):
+    """One rank of the 2x2 serve-step run: every arch's STEPS teacher-forced
+    steps on its shards of the reference's params and caches, and one
+    migration step on the first arch's first paged segment."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve_step as SS
+    from repro_torch.launch.mesh import local_block, make_local_mesh
+    from repro_torch.models import transformer as T
+
+    workdir = Path(workdir)
+    ref = dict(np.load(workdir / "reference_out.npz"))
+    inp = dict(np.load(workdir / "inputs.npz"))
+    mesh = make_local_mesh(2, 2)
+    shape = ShapeConfig(**SERVE_SHAPE)
+    plan = SS.DecodePlan(batch_axes=("data",), kv_axes=("model",),
+                         page=SERVE_PAGE)
+    out = {}
+
+    def local(a, spec):
+        return torch.from_numpy(np.ascontiguousarray(local_block(a, spec, mesh)))
+
+    for ai, (name, n_layers) in enumerate(archs):
+        cfg = serve_config(name, n_layers)
+        fn, _, _ = SS.make_serve_step(cfg, shape, mesh, plan=plan,
+                                      compute_dtype=torch.float32)
+        _, cspecs, _, sspecs, _ = SS.decode_struct(cfg, shape, mesh, plan,
+                                                   dtype=torch.float32)
+        params_np = unflatten(ref, f"{name}/params")
+        params = bridge.shard_to_torch(
+            params_np, T.param_pspecs(params_np, cfg, mesh.shape["model"]),
+            mesh, device="cpu")
+        caches = [{k: local(v, cs[k]) for k, v in c.items()}
+                  for c, cs in zip(unflatten(ref, f"{name}/caches0"), cspecs)]
+        if ai == 0:
+            seg = next(i for i, c in enumerate(caches) if "pool_k" in c)
+            migrate = SS.make_migrate_step(mesh, plan)
+            pk, pv = migrate(caches[seg]["pool_k"].clone(),
+                             caches[seg]["pool_v"].clone(),
+                             local(inp["mig_src"], ("data", "model", None)),
+                             local(inp["mig_dst"], ("data", "model", None)))
+            out["migrate/pool_k"], out["migrate/pool_v"] = pk.numpy(), pv.numpy()
+        for t in range(STEPS):
+            step = {"tokens": inp[f"{name}/tokens"][t],
+                    "block_table": inp["block_table"],
+                    **{k: inp[f"step{t}/{k}"] for k in
+                       ("app_slot", "app_off", "app_rank", "lengths")}}
+            step = {k: local(v, sspecs[k]) for k, v in step.items()}
+            toks, caches, logits = fn(params, caches, step, with_logits=True)
+            out[f"{name}/tokens/{t}"] = toks.numpy()
+            out[f"{name}/logits/{t}"] = logits.numpy()
+        out.update(flatten([{k: v.numpy() for k, v in c.items()}
+                            for c in caches], f"{name}/caches"))
+    np.savez(rank_out(workdir, rank), **out)
+
+
+PAGED_MESH = (2, 4)
+
+
+def paged_rank(rank, workdir):
+    """One rank of the 2x4 run of ``_paged_attn_sharded``: the f32 pool and
+    the int8 pool."""
+    import torch
+    from repro_torch.launch import serve_step as SS
+    from repro_torch.launch.mesh import local_block, make_local_mesh
+
+    workdir = Path(workdir)
+    inp = dict(np.load(workdir / "inputs.npz"))
+    ref = dict(np.load(workdir / "reference_out.npz"))
+    mesh = make_local_mesh(*PAGED_MESH)
+    pool_spec = ("data", "model", None, None, None, None)
+    vec = ("data", None, None)
+
+    def local(a, spec):
+        return torch.from_numpy(np.ascontiguousarray(local_block(a, spec, mesh)))
+
+    args = [local(inp["bt"], ("data", "model", None, None)),
+            local(inp["q"], vec), local(inp["k"], vec), local(inp["v"], vec),
+            *(local(inp[k], ("data",)) for k in
+              ("app_slot", "app_off", "app_rank", "lengths"))]
+    out = {}
+    for kv_dtype in ("bf16", "int8"):
+        plan = SS.DecodePlan(batch_axes=("data",), kv_axes=("model",), page=4,
+                             kv_dtype=kv_dtype)
+        keys = ("pool_k", "pool_v") + (("scale_k", "scale_v")
+                                       if kv_dtype == "int8" else ())
+        cache = {k: local(ref[f"{kv_dtype}/in/{k}"],
+                          pool_spec if k.startswith("pool") else pool_spec[:-1])
+                 for k in keys}
+        o = SS._paged_attn_sharded(cache, *args, mesh=mesh, plan=plan,
+                                   out_dtype=torch.float32)
+        out[f"{kv_dtype}/out"] = o.numpy()
+        for k in keys:
+            out[f"{kv_dtype}/{k}"] = cache[k].numpy()
+    np.savez(rank_out(workdir, rank), **out)
