@@ -39,7 +39,17 @@ granite-3-8b (8 of 40 layers) and gemma3-4b (6 of 34) in f32 on one rank
 (a 1x1 mesh over NCCL) held against ``models.decode``, and on four ranks
 (2x2) sharing the card over gloo, fed the one rank's tokens and held
 against its logits, with one migration step checked against the moved
-pages.  Each main path runs with every kernel's launch count
+pages.  Phase 13 runs the sharded prefill cell (``launch/specs.py``: the
+sharded ``prefill_logits``, each rank's attention on the flash kernel and
+its SSD heads on the SSD kernel) and the serve step of the other kinds:
+full-width hymba-1.5b (6 of 32 layers), deepseek-moe-16b (4 of 28, EP over
+64 experts) and whisper-large-v3 (4 + 4 of 32 + 32, cross K/V over 1536
+frames), f32, on one rank (NCCL) held against the unsharded
+``prefill_logits`` and ``models.decode`` (whisper's without the position
+``models.decode`` adds to a decode token, which the reference's serve step
+does not), and on four gloo ranks sharing the card held against one rank;
+then every shape the phase gave a kernel is held against the kernel's plain
+version on fresh inputs.  Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -358,10 +368,11 @@ def band_mask(s, causal, window, dev, sk=None):
     return mask
 
 
-def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed, sk=None):
+def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed, sk=None, timed=True):
     """The flash kernel against its plain version and SDPA, q (hq, s, d) and
     k/v (hkv, sk, d) (sk defaults to s): one prefill of one sequence, every
-    head; a cross-attention or an encoder when not causal."""
+    head; a cross-attention or an encoder when not causal.  ``timed=False``
+    holds the kernel against its plain version only."""
     from repro_torch.kernels import flash_attention as fa
     dev = "cuda"
     sk = s if sk is None else sk
@@ -375,6 +386,9 @@ def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed, sk=None):
     assert_close(name, out, ref, dtype)
     assert_repeatable(name, [out], [fa.flash_attention(q, k, v, causal=causal,
                                                        window=window)])
+    if not timed:
+        log(f"  {name}: err {max_err(out, ref):.3e}")
+        return None
     mask = band_mask(s, causal, window, dev, sk)
     pairs = int(mask.sum())
     el = torch.finfo(dtype).bits // 8
@@ -411,10 +425,11 @@ def flash_case(name, hq, hkv, d, s, causal, window, dtype, seed, sk=None):
     return rec
 
 
-def ssd_case(name, b, s, h, p, g, n, chunk, dtype, seed, s_real=None):
+def ssd_case(name, b, s, h, p, g, n, chunk, dtype, seed, s_real=None, timed=True):
     """The SSD kernel against its plain version on model-like inputs: the
     init's decay A = -linspace(1, 16) and dt = softplus(N(0, 0.5^2) +
-    dt_bias); steps past ``s_real`` are the zero padding of a prefill."""
+    dt_bias); steps past ``s_real`` are the zero padding of a prefill.
+    ``timed=False`` holds the kernel against its plain version only."""
     from repro_torch.kernels import ssd_scan as ssd
     dev = "cuda"
     g_ = torch.Generator(device=dev).manual_seed(seed)
@@ -445,6 +460,9 @@ def ssd_case(name, b, s, h, p, g, n, chunk, dtype, seed, s_real=None):
             fail(f"{name} {what}: max abs err {max_err(out, ref):.3e} over the "
                  f"bf16 split's limit {SSD_BF16_ABS_ERR}")
     assert_repeatable(name, [y, hT], ssd.ssd_scan(x, dt, a, bm, cm, chunk))
+    if not timed:
+        log(f"  {name}: err {max(max_err(y, y_ref), max_err(hT, h_ref)):.3e}")
+        return None
     el = torch.finfo(dtype).bits // 8
     n_bytes = (b * s * h * p * el + b * s * h * 4 + h * 4 + 2 * b * s * g * n * el
                + b * s * h * p * 4 + b * h * p * n * 4)
@@ -1912,12 +1930,14 @@ def shard_params(cfg, seed, mesh):
     return out
 
 
-def serve_sharded(cfg, mesh, params, prompts, n_steps, *, fed=None, on_step=None):
+def serve_sharded(cfg, mesh, params, prompts, n_steps, *, fed=None, on_step=None,
+                  cross=None):
     """Drive ``make_serve_step`` for ``n_steps`` steps on this rank: row b
     is fed its prompt, then its own argmax (or ``fed[t]``, the global token
     stream of an earlier run).  ``on_step(t, tokens, logits)`` sees every
-    step's local output.  Returns the fed global tokens (steps, B), the
-    rank's final caches and the wall ms of each step (synchronised)."""
+    step's local output; ``cross``: per segment, the global cross K/V of
+    its ``xattn``/``dec`` layers.  Returns the fed global tokens (steps, B),
+    the rank's final caches and the wall ms of each step (synchronised)."""
     from repro_torch.launch import serve_step as SS
     from repro_torch.launch.mesh import local_block
     shape, plan, bt = shard_geometry(cfg, mesh, n_steps)
@@ -1928,6 +1948,9 @@ def serve_sharded(cfg, mesh, params, prompts, n_steps, *, fed=None, on_step=None
     caches = [{k: torch.zeros(local_block(v, cs[k], mesh).shape, dtype=v.dtype,
                               device="cuda") for k, v in c.items()}
               for c, cs in zip(structs, cspecs)]
+    for c, cs, x in zip(caches, cspecs, cross or []):
+        for k in x:
+            c[k].copy_(local_block(x[k], cs[k], mesh))
     kvr = SS.axis_sizes(mesh, plan.kv_axes)
     d = mesh.index("data")
     b_loc = SHARD_BATCH // mesh.shape["data"]
@@ -2022,28 +2045,29 @@ def partial_case(shape, kvr, dtype, pool, seed=21, timed=False):
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times)
 
 
-def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_dir):
-    """One of (c)'s gloo ranks on the shared card: the sharded serve step on
-    (b)'s token stream, every step's logits held against (b)'s, then one
-    migration step checked against the moved payloads."""
+def _gloo_rank(rank, port):
+    """A spawned rank's setup: gloo over ``SHARD_MESH`` on the shared card,
+    its mesh with each collective timed (host wall inside it, calls), and
+    counts of the kernels' plain versions run on CUDA tensors.  Returns
+    (mesh, [ms], [calls], {kernel: plain calls})."""
     import datetime
     import torch.distributed as dist
-    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import serve_step as SS
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=SHARD_MESH[0] * SHARD_MESH[1],
                             timeout=datetime.timedelta(seconds=SHARD_SECONDS))
-    plain_calls = [0]
-    plain = pa.paged_attention_partials_plain
-
-    def counted(q, *a, **kw):
-        plain_calls[0] += int(q.is_cuda)
-        return plain(q, *a, **kw)
-    pa.paged_attention_partials_plain = counted
+    plain_calls = {"paged_partials": 0, "flash": 0, "ssd": 0}
+    for key, mod, fn in (("paged_partials", pa, "paged_attention_partials_plain"),
+                         ("flash", fa, "flash_attention_plain"), ("ssd", ssd, "ssd_scan_plain")):
+        def counted(x, *a, _fn=getattr(mod, fn), _key=key, **kw):
+            plain_calls[_key] += int(x.is_cuda)
+            return _fn(x, *a, **kw)
+        setattr(mod, fn, counted)
     mesh = mesh_lib.make_local_mesh(*SHARD_MESH)
     # host wall spent inside the collectives
     coll_ms, coll_calls = [0.0], [0]
@@ -2057,6 +2081,19 @@ def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_
             coll_calls[0] += 1
             return out
         setattr(mesh, op, timed)
+    return mesh, coll_ms, coll_calls, plain_calls
+
+
+def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_dir):
+    """One of (c)'s gloo ranks on the shared card: the sharded serve step on
+    (b)'s token stream, every step's logits held against (b)'s, then one
+    migration step checked against the moved payloads."""
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve_step as SS
+    mesh, coll_ms, coll_calls, plain_calls = _gloo_rank(rank, port)
     cfg = replace(ARCHS[name], n_layers=n_layers)
     params = shard_params(cfg, seed, mesh)
     d = mesh.index("data")
@@ -2100,7 +2137,7 @@ def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_
     migrated = all(torch.equal(caches[seg][k][:, 0, 0][:, dst[0, 0].long()], moved[k])
                    for k in moved)
     res = dict(rank=rank, worst=worst, flips=flips, launches=launches,
-               plain_cuda_calls=plain_calls[0], migrated=migrated,
+               plain_cuda_calls=plain_calls["paged_partials"], migrated=migrated,
                step_ms=float(np.median(walls[1:])), coll_ms=float(np.median(coll[1:])),
                coll_calls=calls_per_step,
                backend=mesh.backend, staged=sorted(mesh_lib.HOST_STAGED),
@@ -2117,15 +2154,83 @@ def _free_port():
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def no_decode_positions():
+    """``models.decode`` without the sinusoidal position it adds to each
+    decode token of the audio arch: the reference's serve step adds none."""
+    from repro_torch.models import decode as D
+    real = D.sinusoidal_at
+    D.sinusoidal_at = lambda pos, d: 0 * real(pos, d)  # exact zeros
+    try:
+        yield
+    finally:
+        D.sinusoidal_at = real
+
+
+def against_decode(cfg, params, fed, steps_logits, toks, cross=None):
+    """Single-device ``models.decode`` on the token stream ``fed`` (steps,
+    B), its cross-attention caches filled from ``cross`` (``cross_kv``'s,
+    per segment), without the audio arch's decode positions
+    (``no_decode_positions``): (the worst logit error relative to the
+    largest, the argmax mismatches) of a serve step run's ``steps_logits``
+    and ``toks``."""
+    from repro_torch.models import decode as D
+    from repro_torch.models import transformer as T
+    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
+    n_steps = len(fed)
+    n_pages = -(-n_steps // SHARD_PAGE)
+    bt = torch.arange(SHARD_BATCH * n_pages, dtype=torch.int32,
+                      device="cuda").reshape(SHARD_BATCH, n_pages)
+    worst, mism = 0.0, 0
+    with off_path(), no_decode_positions():
+        n_cross = next((x["cross_k"].shape[2] for x in cross or [] if x), 0)
+        caches = D.init_caches(cfg, SHARD_BATCH, pool_slots=SHARD_BATCH * n_pages,
+                               page=SHARD_PAGE, n_cross=n_cross, device="cuda")
+        for info, c in zip(D.layer_infos(cfg), caches["layers"]):
+            if info.uses_cross:
+                for key in ("cross_k", "cross_v"):
+                    c[key].copy_(cross[info.seg][key][info.idx])
+        for t in range(n_steps):
+            lg, caches = D.decode_step(params, caches, torch.from_numpy(fed[t]).to("cuda"),
+                                       cfg, ctx, bt, bt[:, t // SHARD_PAGE],
+                                       torch.full((SHARD_BATCH,), t % SHARD_PAGE))
+            real = lg[:, :cfg.vocab]          # the padded tail is -1e30 in both
+            worst = max(worst, max_err(steps_logits[t, :, :cfg.vocab], real)
+                        / float(real.abs().max()))
+            mism += int((lg.argmax(-1).cpu().numpy() != toks[t]).sum())
+    return worst, mism
+
+
+def run_ranks(fn, args, name):
+    """``fn(rank, port, *args, out_dir)`` on the four ranks of ``SHARD_MESH``
+    (spawned; killed past ``SHARD_SECONDS``): the JSON each wrote to
+    ``out_dir/rank<r>.json``."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = mp.start_processes(fn, args=(_free_port(),) + tuple(args) + (out_dir,),
+                                   nprocs=SHARD_MESH[0] * SHARD_MESH[1], join=False,
+                                   start_method="spawn")
+        deadline = time.monotonic() + SHARD_SECONDS
+        try:
+            while not procs.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                if time.monotonic() > deadline:
+                    fail(f"{name}: the four ranks outlasted {SHARD_SECONDS} s")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        return [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                for r in range(SHARD_MESH[0] * SHARD_MESH[1])]
+
+
 def shard_arch(name, n_layers, seed):
     """(b) then (c) for one arch."""
-    import tempfile
     import torch.distributed as dist
-    import torch.multiprocessing as mp
     from repro_torch.configs import ARCHS, replace
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import decode as D
     from repro_torch.models import transformer as T
     cfg = replace(ARCHS[name], n_layers=n_layers)
     prompts = shard_prompts(cfg, seed)
@@ -2150,23 +2255,8 @@ def shard_arch(name, n_layers, seed):
     if not cfg.tie_embeddings:
         w_bytes -= params["embed"].numel() * params["embed"].element_size()
     # ... held against single-device models.decode on the same token stream
-    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
-    n_pages = -(-n_steps // SHARD_PAGE)
-    bt = torch.arange(SHARD_BATCH * n_pages, dtype=torch.int32,
-                      device="cuda").reshape(SHARD_BATCH, n_pages)
-    worst, mism = 0.0, 0
-    with off_path():
-        caches = D.init_caches(cfg, SHARD_BATCH, pool_slots=SHARD_BATCH * n_pages,
-                               page=SHARD_PAGE, device="cuda")
-        for t in range(n_steps):
-            lg, caches = D.decode_step(params, caches, torch.from_numpy(fed[t]).to("cuda"),
-                                       cfg, ctx, bt, bt[:, t // SHARD_PAGE],
-                                       torch.full((SHARD_BATCH,), t % SHARD_PAGE))
-            real = lg[:, :cfg.vocab]          # the padded tail is -1e30 in both
-            worst = max(worst, max_err(steps_logits[t, :, :cfg.vocab], real)
-                        / float(real.abs().max()))
-            mism += int((lg.argmax(-1).cpu().numpy() != toks_b[t]).sum())
-    del params, caches
+    worst, mism = against_decode(cfg, params, fed, steps_logits, toks_b)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  (b) {name} ({n_layers} layers) one rank: {n_steps} steps, "
@@ -2177,23 +2267,7 @@ def shard_arch(name, n_layers, seed):
         fail(f"{name}: the one-rank serve step differs from models.decode "
              f"({worst:.3e}, {mism} tokens)")
     # (c) four ranks sharing the card over gloo, fed (b)'s tokens
-    with tempfile.TemporaryDirectory() as out_dir:
-        procs = mp.start_processes(
-            _shard_rank, args=(_free_port(), name, n_layers, seed, prompts, fed,
-                               steps_logits, out_dir),
-            nprocs=SHARD_MESH[0] * SHARD_MESH[1], join=False, start_method="spawn")
-        deadline = time.monotonic() + SHARD_SECONDS
-        try:
-            while not procs.join(timeout=max(deadline - time.monotonic(), 1.0)):
-                if time.monotonic() > deadline:
-                    fail(f"{name}: the four ranks outlasted {SHARD_SECONDS} s")
-        finally:
-            for p in procs.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        res = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
-               for r in range(SHARD_MESH[0] * SHARD_MESH[1])]
+    res = run_ranks(_shard_rank, (name, n_layers, seed, prompts, fed, steps_logits), name)
     del steps_logits
     torch.cuda.empty_cache()
     pa.paged_attention_partials.launches += sum(r["launches"] for r in res)
@@ -2235,6 +2309,311 @@ def phase_sharded():
 
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the sharded prefill cell and the serve step of the other kinds
+# --------------------------------------------------------------------------
+
+# Full width, f32, depth cut to fit the phase's ~120 s: hymba-1.5b at 6 of
+# 32 layers (3 global + 3 sliding-window: SSD heads, paged partials, rings),
+# deepseek-moe-16b at 4 of 28 (1 dense + 3 MoE layers; EP over 64 experts),
+# whisper-large-v3 at 4 + 4 of 32 + 32 (cross K/V over 1536 frames)
+KINDS_ARCHS = (("hymba-1.5b", dict(n_layers=6), 41),
+               ("deepseek-moe-16b", dict(n_layers=4), 42),
+               ("whisper-large-v3", dict(n_layers=4, encoder_layers=4), 43))
+KINDS_PREFILL = (2, 509)     # the prefill cell's batch (one row a data rank)
+                             # and prompt (S % 2 != 0 under seq_parallel)
+KINDS_PROMPTS = (16, 32)     # the serve step's prompts, fed one per step,
+KINDS_NEW = 16               # then this many generated
+KINDS_TOL = 1e-5             # of the largest logit (real vocab)
+
+
+def kinds_inputs(cfg, seed):
+    """The prefill cell's global tokens and frontend, the serve step's
+    prompts and frontend, all seeded."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    b, s = KINDS_PREFILL
+    tokens = torch.randint(2, cfg.vocab, (b, s), generator=g, device="cuda")
+    fe = fe_serve = None
+    if cfg.n_frontend_tokens:
+        fe = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=g,
+                         device="cuda")
+        fe_serve = torch.randn((SHARD_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+                               generator=g, device="cuda")
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(KINDS_PROMPTS[0], KINDS_PROMPTS[1] + 1, size=SHARD_BATCH)
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)) for n in lens]
+    return tokens, fe, prompts, fe_serve
+
+
+def cross_kv(cfg, params, frontend):
+    """Per segment, the serve step's global cross K/V (n, B, N, kv, hd): the
+    frontend, or whisper's encoder output over it, projected by each cross
+    layer's ``wk``/``wv``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import matmul
+    if frontend is None:
+        return None
+    ctx = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
+    enc = T.encode(params, frontend, cfg, ctx) if cfg.family == "audio" else frontend
+    b, n = enc.shape[:2]
+    out = []
+    for seg, p in zip(T.segments(cfg), params["segments"]):
+        c = {}
+        if seg.kind in ("xattn", "dec"):
+            for key, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                c[key] = torch.stack([
+                    matmul(enc, p["xattn"][w][i]).reshape(b, n, cfg.n_kv_heads, -1)
+                    for i in range(seg.count)])
+        out.append(c)
+    return out
+
+
+def prefill_cell(cfg, mesh):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_prefill_cell
+    b, s = KINDS_PREFILL
+    shape = ShapeConfig("chip_smoke", seq_len=s, global_batch=b, kind="prefill")
+    return build_prefill_cell(cfg, shape, mesh, compute_dtype=torch.float32)
+
+
+def wall_ms(fn):
+    """Synchronised host wall of one call of ``fn``, ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def rel_err(got, want, vocab):
+    """Largest error over the real vocab, relative to the largest logit."""
+    want = want[..., :vocab]
+    return max_err(got[..., :vocab], want) / float(want.abs().max())
+
+
+@contextlib.contextmanager
+def shapes_seen():
+    """Note the shapes of every call the model makes of the three kernels'
+    wrappers, at their call sites (``kernels.ops`` for flash and SSD, the
+    serve step for the partial entry): yields {kernel: set of keys}, the
+    keys ``hold_seen`` takes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_step as SS
+    seen = {"flash": set(), "ssd": set(), "paged_partials": set()}
+    flash, ssd, partials = ops._flash, ops._ssd, SS.paged_attention_partials
+    name = lambda t: str(t.dtype)[6:]  # noqa: E731
+
+    def flash_(q, k, v, *, causal=True, window=0):
+        seen["flash"].add((q.shape[0], k.shape[0], q.shape[2], q.shape[1], k.shape[1],
+                           causal, window, name(q)))
+        return flash(q, k, v, causal=causal, window=window)
+
+    def ssd_(x, dt, a, bm, cm, chunk):
+        seen["ssd"].add(tuple(x.shape) + tuple(bm.shape[2:]) + (chunk, name(x)))
+        return ssd(x, dt, a, bm, cm, chunk)
+
+    def partials_(q, kp, vp, bt, lengths, **kw):
+        (b, hq, d), hkv = q.shape, kp.shape[2]
+        seen["paged_partials"].add((b, hq, hkv, d, bt.shape[1], kw["kvr"], name(q), name(kp)))
+        return partials(q, kp, vp, bt, lengths, **kw)
+
+    ops._flash, ops._ssd, SS.paged_attention_partials = flash_, ssd_, partials_
+    try:
+        yield seen
+    finally:
+        ops._flash, ops._ssd, SS.paged_attention_partials = flash, ssd, partials
+
+
+def hold_seen(seen):
+    """Every shape ``shapes_seen`` noted on phase 13's path, on fresh seeded
+    inputs: the flash and SSD kernels against their plain versions, the
+    partial entry's partials against its plain version and combined over
+    the ranks against one unsplit call (``partial_case``)."""
+    for key, keys in seen.items():
+        if not keys:
+            fail(f"phase 13: no {key} call was seen at the model's call sites")
+    for i, (hq, hkv, d, sq, sk, causal, window, dt) in enumerate(sorted(seen["flash"])):
+        flash_case(f"flash Hq{hq} Hkv{hkv} D{d} Sq{sq} Sk{sk} "
+                   f"{'causal' if causal else 'non-causal'} window{window} {dt}",
+                   hq, hkv, d, sq, causal, window, getattr(torch, dt), seed=60 + i, sk=sk,
+                   timed=False)
+    for i, (b, s, h, p, g, n, chunk, dt) in enumerate(sorted(seen["ssd"])):
+        ssd_case(f"ssd B{b} S{s} H{h} P{p} G{g} N{n} chunk{chunk} {dt}", b, s, h, p, g, n,
+                 chunk, getattr(torch, dt), seed=80 + i, timed=False)
+    for b, hq, hkv, d, p_loc, kvr, qd, pool in sorted(seen["paged_partials"]):
+        if pool not in ("int8", qd):
+            fail(f"phase 13: no partial case builds a {pool} pool under {qd} q")
+        n_pages = p_loc * kvr
+        partial_case((b, hq, hkv, d, n_pages * SHARD_PAGE, n_pages), kvr,
+                     getattr(torch, qd), pool)
+
+
+def _kinds_rank(rank, port, name, over, seed, tokens, fe, ref_prefill, prompts, fed,
+                ref_logits, cross, out_dir):
+    """One of (c)'s gloo ranks: the prefill cell on its rows held against
+    (b)'s logits, then the serve step on (b)'s token stream, every step's
+    logits held against (b)'s; then one profiled prefill (off the counts).
+    Also returns the shapes the rank gave the kernels (``shapes_seen``)."""
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import local_block
+    mesh, coll_ms, coll_calls, plain_calls = _gloo_rank(rank, port)
+    with shapes_seen() as seen:
+        cfg = replace(ARCHS[name], **over)
+        params = shard_params(cfg, seed, mesh)
+        wrappers = (fa.flash_attention, ssd.ssd_scan, pa.paged_attention_partials)
+        for w in wrappers:
+            w.launches = 0
+        d = mesh.index("data")
+        rows = lambda x, n: x[d * n:(d + 1) * n]  # noqa: E731
+        toks_l = local_block(tokens, ("data", None), mesh)
+        fe_l = None if fe is None else local_block(fe, ("data", None, None), mesh)
+        cell = prefill_cell(cfg, mesh)
+        dist.barrier()
+        calls0 = coll_calls[0]
+        got = cell.fn(params, toks_l, fe_l)
+        prefill_calls = coll_calls[0] - calls0
+        prefill_err = rel_err(got, rows(ref_prefill, KINDS_PREFILL[0] // SHARD_MESH[0]),
+                              cfg.vocab)
+        with off_path():           # a second call, past the first one's warm-up
+            dist.barrier()
+            prefill_ms = wall_ms(lambda: cell.fn(params, toks_l, fe_l))
+        b_loc = SHARD_BATCH // SHARD_MESH[0]
+        worst, flips, per_step = 0.0, 0, []
+
+        def check(t, toks, logits):
+            nonlocal worst, flips
+            per_step.append((coll_ms[0], coll_calls[0]))
+            ref = rows(ref_logits[t], b_loc)[:, :cfg.vocab]
+            worst = max(worst, rel_err(logits, ref, cfg.vocab))
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > KINDS_TOL * float(ref.abs().max())
+            flips += int(((logits[:, :cfg.vocab].argmax(-1) != ref.argmax(-1)) & sure).sum())
+
+        dist.barrier()
+        base = (coll_ms[0], coll_calls[0])
+        _, _, walls = serve_sharded(cfg, mesh, params, prompts, len(fed), fed=fed,
+                                    on_step=check, cross=cross)
+        launches = [w.launches for w in wrappers]
+        coll = np.diff(np.array([base] + per_step), axis=0)   # per step: (ms, calls)
+        dist.barrier()
+        # device busy of one prefill, profiled (its launches are not counted)
+        with off_path():
+            _, busy, _, _ = profile_step(lambda: cell.fn(params, toks_l, fe_l))
+        res = dict(rank=rank, prefill_err=prefill_err, prefill_ms=prefill_ms,
+                   prefill_calls=prefill_calls, prefill_busy_ms=busy, worst=worst,
+                   flips=flips, launches=launches, plain_cuda_calls=plain_calls,
+                   step_ms=float(np.median(walls[1:])), coll_ms=float(np.median(coll[1:, 0])),
+                   coll_calls=float(np.median(coll[1:, 1])),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   shapes={k: sorted(v) for k, v in seen.items()})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def kinds_arch(name, over, seed, seen):
+    """(b) one rank (1x1, NCCL): the prefill cell against the unsharded
+    ``prefill_logits``, the serve step against ``models.decode``; (c) four
+    ranks (2x2, gloo, one card) against (b).  The shapes (c)'s ranks gave
+    the kernels join ``seen``."""
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ops import flash_attention_op
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+    cfg = replace(ARCHS[name], **over)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    mesh = make_local_mesh(1, 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens, fe, prompts, fe_serve = kinds_inputs(cfg, seed)
+    cell = prefill_cell(cfg, mesh)
+    got = cell.fn(params, tokens, fe)
+    with off_path():
+        ctx = T.ParallelCtx(remat=False, compute_dtype=torch.float32)
+        plain = T.prefill_logits(params, tokens, cfg, ctx, frontend=fe,
+                                 attention=flash_attention_op)
+        prefill_ms = wall_ms(lambda: cell.fn(params, tokens, fe))
+        _, busy, n_kernels, _ = profile_step(lambda: cell.fn(params, tokens, fe))
+        # (c)'s reference: the cell on each data rank's rows (an MoE
+        # dispatch takes its capacity from the rows of its call)
+        n = KINDS_PREFILL[0] // SHARD_MESH[0]
+        ref_prefill = torch.cat([
+            cell.fn(params, tokens[i:i + n], None if fe is None else fe[i:i + n])
+            for i in range(0, KINDS_PREFILL[0], n)])
+        cross = cross_kv(cfg, params, fe_serve)
+    err1 = rel_err(got, plain, cfg.vocab)
+    n_steps = max(len(p) for p in prompts) + KINDS_NEW
+    steps_logits = torch.empty((n_steps, SHARD_BATCH, cfg.padded_vocab), device="cuda")
+    toks_b = []
+
+    def keep(t, toks, logits):
+        steps_logits[t] = logits
+        toks_b.append(toks)
+    fed, _, walls = serve_sharded(cfg, mesh, params, prompts, n_steps, on_step=keep,
+                                  cross=cross)
+    dist.destroy_process_group()
+    dec = against_decode(cfg, params, fed, steps_logits, toks_b, cross)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) {name} ({over}, {n_params / 1e9:.3f} B params) one rank: prefill cell "
+        f"B {KINDS_PREFILL[0]} S {KINDS_PREFILL[1]} {prefill_ms:.3f} ms (a second call; device busy "
+        f"{busy:.3f} ms, {n_kernels} kernels, profiled), within {err1:.3e} of the "
+        f"unsharded prefill_logits' largest; serve step {n_steps} steps, "
+        f"{float(np.median(walls[1:])):.3f} ms per step (median), within {dec[0]:.3e} "
+        f"of models.decode's largest, {dec[1]} tokens differ")
+    if err1 > KINDS_TOL or dec[0] > KINDS_TOL or dec[1]:
+        fail(f"{name}: the one-rank prefill cell or serve step disagrees "
+             f"({err1:.3e}, {dec})")
+    res = run_ranks(_kinds_rank, (name, over, seed, tokens, fe, ref_prefill, prompts, fed,
+                                  steps_logits, cross), name)
+    del steps_logits, cross, ref_prefill
+    torch.cuda.empty_cache()
+    for w, i in ((fa.flash_attention, 0), (ssd.ssd_scan, 1), (pa.paged_attention_partials, 2)):
+        w.launches += sum(r["launches"][i] for r in res)
+    for key in ("flash", "ssd", "paged_partials"):
+        PLAIN_CUDA_CALLS[key] += sum(r["plain_cuda_calls"][key] for r in res)
+        seen[key].update(tuple(k) for r in res for k in r["shapes"][key])
+    pre = max(r["prefill_err"] for r in res)
+    worst = max(r["worst"] for r in res)
+    flips = sum(r["flips"] for r in res)
+    log(f"  (c) {name} four ranks (2x2, gloo, one card): prefill cell (a second call) "
+        f"{[round(r['prefill_ms'], 3) for r in res]} ms, {res[0]['prefill_calls']} "
+        f"collective calls, device busy {[round(r['prefill_busy_ms'], 3) for r in res]} ms "
+        f"(profiled), within {pre:.3e} of the largest of (b)'s on the data rank's rows; "
+        f"serve step "
+        f"{[round(r['step_ms'], 3) for r in res]} ms per step (median), "
+        f"{res[0]['coll_calls']:.0f} collective calls per step, host wall inside them "
+        f"{[round(r['coll_ms'], 3) for r in res]} ms; logits within {worst:.3e} of (b)'s "
+        f"largest, {flips} argmax flips past the top-2 gap; launches (flash, ssd, "
+        f"partials) {[r['launches'] for r in res]}; peak "
+        f"{[round(r['peak_gb'], 2) for r in res]} GB")
+    if pre > KINDS_TOL or worst > KINDS_TOL or flips:
+        fail(f"{name}: four ranks disagree with one ({pre:.3e}, {worst:.3e}, {flips})")
+
+
+def phase_kinds():
+    log("phase 13: the sharded prefill cell and serve step of the other kinds: "
+        "hymba-1.5b (6 of 32 layers), deepseek-moe-16b (4 of 28), whisper-large-v3 "
+        "(4 + 4 of 32 + 32), f32, on one rank (NCCL) and four sharing the card (gloo); "
+        "then every shape the path gave a kernel against its plain version")
+    with shapes_seen() as seen:
+        for name, over, seed in KINDS_ARCHS:
+            kinds_arch(name, over, seed, seen)
+    with off_path():
+        hold_seen(seen)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2250,7 +2629,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2322,7 +2701,12 @@ def main():
                   # the sharded serve step reads the pools through the partial
                   # entry only; four ranks' launches come back from them
                   (12, "sharded serve step granite-3-8b and gemma3-4b", phase_sharded,
-                   ("paged_partials",))]
+                   ("paged_partials",)),
+                  # the prefill cell runs flash on each rank's heads and SSD on
+                  # its SSD heads; the decode reads pools through the partial
+                  # entry; four ranks' launches come back from them
+                  (13, "sharded prefill and serve step hymba-1.5b, deepseek-moe-16b "
+                   "and whisper-large-v3", phase_kinds, ("flash", "ssd", "paged_partials"))]
     path_recs = {}
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:

@@ -12,27 +12,28 @@ Distribution plan (the reference's):
   and an exact flash-decoding combine over the KV axes costs one max and one
   sum all-reduce of a few KiB (``combine_partials_psum``);
 * appends are masked to the owning peer (sender-driven placement);
-* weights are Megatron-TP over ``model`` (``param_pspecs``); per-token
-  activations are replicated across ``model``.
+* weights are Megatron-TP over ``model`` (``param_pspecs``), the MoE
+  experts EP over it; per-token activations are replicated across
+  ``model``.
 
 The reference runs this as one SPMD program over global arrays, with the
 collectives GSPMD and ``shard_map`` insert.  Here every rank runs
 ``serve_step`` on its local shards (``launch/mesh.py``) and the collectives
 are written out: the vocab-parallel embedding's sum, one all-gather of the
-column-parallel q, k and v, the sums after the row-parallel projections,
-the partials' combine, and the all-gather of the vocab-parallel logits
-before the argmax.  Local shapes are the global ones of ``decode_struct`` cut by
-their placements (``mesh.local_block``): a rank's pool is (n, 1, 1, slots,
-page, kv, hd), its block table (1, 1, B_loc, P_loc).  Pools and rings are
-updated in place.
+column-parallel q, k and v, the sums after the row-parallel projections
+(and the MoE experts'), the partials' combine, the SSM decode's gather of
+its x columns for the replicated conv ring and its gate norm's sum, and the
+all-gather of the vocab-parallel logits before the argmax.  Local shapes
+are the global ones of ``decode_struct`` cut by their placements
+(``mesh.local_block``): a rank's pool is (n, 1, 1, slots, page, kv, hd),
+its block table (1, 1, B_loc, P_loc), its SSD state its part of (n, B, H,
+P, N) (heads, else head_dim, else whole).  Pools, rings, SSD states and
+conv rings are updated in place; the cross K/V (``xattn`` and ``dec``
+layers) are read.
 
 Shapes:
   decode_32k : batch over (pod,)data, pages over model.
   long_500k  : batch=1 -> pure sequence parallelism: pages over ALL axes.
-
-The serve step takes the attention kinds (``attn`` layers, paged or
-sliding-window, with a SwiGLU or GELU FFN).  The SSM, hybrid and
-cross-attention kinds and the MoE FFN under a mesh are ROADMAP item 13b.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import device_ops as dev
@@ -51,7 +51,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.attention import (combine_partials,
                                           combine_partials_psum,
                                           decode_partial)
-from repro_torch.models.layers import apply_rope, matmul, rms_norm
+from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, rms_norm,
+                                       row_parallel, swiglu)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.transformer import ParallelCtx, segments
 
 
@@ -282,15 +284,6 @@ def make_migrate_step(mesh, plan: DecodePlan, pool_struct=None):
 # Full serve step
 # --------------------------------------------------------------------------
 
-def _check_kinds(cfg: ArchConfig):
-    for seg in segments(cfg):
-        if seg.kind != "attn" or seg.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the sharded serve step takes attention layers "
-                f"with a SwiGLU or GELU FFN; the {seg.kind!r} kind with a "
-                f"{seg.ffn!r} FFN under a mesh is ROADMAP item 13b")
-
-
 def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
                     plan: Optional[DecodePlan] = None,
                     compute_dtype=torch.bfloat16):
@@ -300,43 +293,31 @@ def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
     ``bridge.shard_to_torch``), ``caches`` and ``step`` its blocks of
     ``decode_struct``'s.  ``serve_step(..., with_logits=True)`` also returns
     the (B_loc, V) f32 logits the argmax read."""
-    _check_kinds(cfg)
     plan = plan or plan_for(shape, mesh)
-    ctx = ParallelCtx(mesh=mesh, compute_dtype=compute_dtype)
+    ctx = ParallelCtx(mesh=mesh, dp_axes=plan.batch_axes or ("data",),
+                      compute_dtype=compute_dtype)
     mesh, ax = ctx.mesh, ctx.model_axis    # TP over the placements' "model"
     segs = segments(cfg)
     hd = cfg.resolved_head_dim
-    mp = mesh.shape[ax]
-    tp = mesh.index(ax) if mesh.coords else None   # None: a layout
-    pspecs = T.param_pspecs(T.init_params(cfg, generator=None, device="meta"),
-                            cfg, model_size=mp)
+    widths = (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd)
 
-    def row(h, h_local, w, spec):
-        """Row-parallel ``h @ w`` summed over model when ``w``'s rows are
-        sharded.  ``h_local``: ``h`` holds only this rank's columns."""
-        if spec[-2] == ax:
-            if not h_local:
-                n = w.shape[-2]
-                h = h[..., tp * n:(tp + 1) * n]
-            return mesh.all_reduce(matmul(h, w), ax, "sum")
-        if h_local:
-            h = mesh.all_gather(h, ax, dim=-1)
-        return matmul(h, w)
+    def out_proj(p, out):
+        return row_parallel(out.reshape(out.shape[0], -1), p["wo"],
+                            cfg.n_heads * hd, mesh, ax)
 
-    def qkv_one(p, sp, x, lengths):
+    def qkv_one(p, x, lengths):
         """Column-parallel q/k/v, replicated across model for the page read:
-        the sharded ones' columns come back in one all-gather."""
+        the cut ones' columns come back in one all-gather."""
         b = x.shape[0]
-        names = ("wq", "wk", "wv")
-        cols = [matmul(x, p[n]) for n in names]
-        sharded = [sp[n][-1] == ax for n in names]
-        if any(sharded):
-            mine = [c for c, s in zip(cols, sharded) if s]
-            widths = [c.shape[-1] for c in mine]
+        cols = [matmul(x, p[n]) for n in ("wq", "wk", "wv")]
+        cut = [c.shape[-1] != w for c, w in zip(cols, widths)]
+        if any(cut):
+            mine = [c for c, s in zip(cols, cut) if s]
+            local = [c.shape[-1] for c in mine]
             every = mesh.all_gather(torch.cat(mine, dim=-1), ax, dim=-1)
             full = iter(part.reshape(b, -1) for part in
-                        every.reshape(b, mp, sum(widths)).split(widths, dim=-1))
-            cols = [next(full) if s else c for c, s in zip(cols, sharded)]
+                        every.reshape(b, ctx.tp, sum(local)).split(local, dim=-1))
+            cols = [next(full) if s else c for c, s in zip(cols, cut)]
         q = cols[0].reshape(b, cfg.n_heads, hd)
         k = cols[1].reshape(b, cfg.n_kv_heads, hd)
         v = cols[2].reshape(b, cfg.n_kv_heads, hd)
@@ -346,11 +327,11 @@ def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
             k = apply_rope(k[:, None], pos, cfg.rope_theta)[:, 0]
         return q, k, v
 
-    def ring_attn(p, sp, x, ring_k, ring_v, lengths):
+    def ring_attn(p, x, ring_k, ring_v, lengths):
         """Sliding-window decode, batch-local; the rings are replicated over
         model, so every model rank appends and attends alike."""
         b = x.shape[0]
-        q, k, v = qkv_one(p, sp, x, lengths)
+        q, k, v = qkv_one(p, x, lengths)
         w = ring_k.shape[1]
         cur = lengths.long()
         rows = torch.arange(b, device=x.device)
@@ -360,84 +341,81 @@ def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh,
         abs_pos = cur[:, None] - ((cur[:, None] - slot) % w)
         valid = (abs_pos >= 0) & (abs_pos <= cur[:, None])
         m, l, acc = decode_partial(q, ring_k, ring_v, valid)
-        out = combine_partials((m[None], l[None], acc[None]), q.dtype)
-        return row(out.reshape(b, -1), False, p["wo"], sp["wo"])
+        return out_proj(p, combine_partials((m[None], l[None], acc[None]),
+                                            q.dtype))
 
-    def paged_attn(p, sp, x, cache, step):
-        b = x.shape[0]
-        q, k, v = qkv_one(p, sp, x, step["lengths"])
-        out = _paged_attn_sharded(
+    def paged_attn(p, x, cache, step):
+        q, k, v = qkv_one(p, x, step["lengths"])
+        return out_proj(p, _paged_attn_sharded(
             cache, step["block_table"], q, k, v, step["app_slot"],
             step["app_off"], step["app_rank"], step["lengths"], mesh=mesh,
-            plan=plan, out_dtype=x.dtype, rows=step["rows"])
-        return row(out.reshape(b, -1), False, p["wo"], sp["wo"])
+            plan=plan, out_dtype=x.dtype, rows=step["rows"]))
 
-    def ffn(p, sp, x, seg):
-        if seg.ffn == "gelu":
-            h = matmul(x, p["wi"])
-            h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-            return row(h, sp["wi"][-1] == ax, p["wo"], sp["wo"])
-        gu = matmul(x, p["wgu"])
-        g, u = gu[..., 0::2], gu[..., 1::2]       # pairs stay in each shard
-        h = F.silu(g.float()).to(x.dtype) * u
-        return row(h, sp["wgu"][-1] == ax, p["wd"], sp["wd"])
-
-    def layer(p, sp, x, cache, seg, step):
-        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    def self_attn(p, x, cache, seg, step):
         if seg.window == 0:
-            a = paged_attn(p["attn"], sp["attn"], h, cache, step)
-        else:
-            a = ring_attn(p["attn"], sp["attn"], h, cache["ring_k"],
-                          cache["ring_v"], step["lengths"])
-        x = x + a
-        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        return x + ffn(p["mlp"], sp["mlp"], h2, seg)
+            return paged_attn(p, x, cache, step)
+        return ring_attn(p, x, cache["ring_k"], cache["ring_v"],
+                         step["lengths"])
 
-    def embed(params, tokens):
-        e = params["embed"]
-        if pspecs["embed"][0] != ax:
-            return e[tokens.long()].to(ctx.compute_dtype)
-        # vocab-parallel: each rank holds rows [lo, lo + n); the sum over
-        # model is exact, one rank adds the row and the rest add zeros
-        n = e.shape[0]
-        idx = tokens.long() - tp * n
-        mine = (idx >= 0) & (idx < n)
-        x = torch.where(mine[:, None], e[idx.clamp(0, n - 1)],
-                        torch.zeros((), dtype=e.dtype, device=e.device))
-        return mesh.all_reduce(x.to(ctx.compute_dtype), ax, "sum")
+    def cross_attn(p, x, ck, cv):
+        """One token over the static cross K/V (replicated over model): q
+        gathered whole, as the reference replicates it."""
+        b = x.shape[0]
+        q = matmul(x, p["wq"])
+        if q.shape[-1] != widths[0]:
+            q = mesh.all_gather(q, ax, dim=-1)
+        q = q.reshape(b, cfg.n_heads, hd)
+        valid = torch.ones(ck.shape[:2], dtype=torch.bool, device=x.device)
+        m, l, acc = decode_partial(q, ck, cv, valid)
+        return out_proj(p, combine_partials((m[None], l[None], acc[None]),
+                                            x.dtype))
 
-    def logits_of(params, x):
-        # (the "embed" rule also matches "unembed": an untied unembedding
-        # is sharded on d, as in the reference, and its logits are summed)
-        if cfg.tie_embeddings:
-            w, spec = params["embed"].T, pspecs["embed"][::-1]
+    def ffn(p, x, seg):
+        if seg.ffn == "moe":
+            return moe_ffn(p["moe"], x[:, None, :], cfg.moe, mesh=mesh,
+                           model_axis=ax)[0][:, 0]
+        mlp = gelu_mlp if seg.ffn == "gelu" else swiglu
+        return mlp(p["mlp"], x, mesh, ax, seg.d_ff or cfg.d_ff)
+
+    def layer(p, x, cache, seg, step):
+        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+        if seg.kind == "xattn":
+            x = x + T.xgate(p, x) * cross_attn(p["xattn"], h, cache["cross_k"],
+                                               cache["cross_v"])
         else:
-            w, spec = params["unembed"], pspecs["unembed"]
-        w = w.to(x.dtype)
-        if spec[1] != ax:
-            return T.mask_vocab_pad(row(x, False, w, spec).float(), cfg)
-        # vocab-parallel: this rank's columns, the padded tail masked by
-        # global id, then gathered for the argmax
-        logits = matmul(x, w).float()
-        ids = tp * w.shape[1] + torch.arange(w.shape[1], device=x.device)
-        logits = torch.where(ids < cfg.vocab, logits, -1e30)
-        return mesh.all_gather(logits, ax, dim=-1)
+            a = y = None
+            if seg.kind in ("attn", "dec", "hybrid"):
+                a = self_attn(p["attn"], h, cache, seg, step)
+            if seg.kind in ("ssm", "hybrid"):
+                st = {"h": cache["ssm_h"], "conv": cache["ssm_conv"]}
+                y, st = ssm_lib.ssm_decode_step(p["ssm"], h, st, cfg.d_model,
+                                                cfg.ssm, mesh=mesh, axis=ax)
+                cache["ssm_h"].copy_(st["h"])
+                cache["ssm_conv"].copy_(st["conv"])
+            x = T.add_mixer(p, x, a, y, cfg)
+            if seg.kind == "dec":
+                hx = rms_norm(p["lnx"], x, cfg.norm_eps)
+                x = x + cross_attn(p["xattn"], hx, cache["cross_k"],
+                                   cache["cross_v"])
+        if seg.ffn != "none":
+            h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+            x = x + ffn(p, h2, seg)
+        return x
 
     def serve_step(params, caches, step, *, with_logits=False):
         pools = [c["pool_k"] for c in caches if "pool_k" in c]
         if pools:                 # one selection of the appending rows
             step = {**step, "rows": owned_rows(step["app_rank"], step["app_slot"],
                                                mesh, plan, pools[0].shape[3])}
-        x = embed(params, step["tokens"])
+        x = T.embed(params, step["tokens"].long(), cfg, ctx)
         for si, (seg, cache) in enumerate(zip(segs, caches)):
-            p_stack, sp = params["segments"][si], pspecs["segments"][si]
-            sp = T._map_with_path(lambda _, s: s[1:], sp)    # one layer's
+            p_stack = params["segments"][si]
             for i in range(seg.count):
                 p1 = T._map_with_path(lambda _, a: a[i], p_stack)
                 c1 = {k: v[i] for k, v in cache.items()}
-                x = layer(p1, sp, x, c1, seg, step)
+                x = layer(p1, x, c1, seg, step)
         x = rms_norm(params["final_ln"], x, cfg.norm_eps)
-        logits = logits_of(params, x)
+        logits = T.logits(params, x, cfg, ctx)
         # the first of equal maxima, as jnp.argmax
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         if with_logits:

@@ -2,9 +2,11 @@
 inputs (tensors on the ``meta`` device -- no allocation) and their
 placements.
 
-The decode cell is the sharded serve step (``launch/serve_step.py``).  The
-prefill and train cells wait for ROADMAP items 13b and 13c, and the
-meta-device dry run that sweeps the cells for 13d.
+The decode cell is the sharded serve step (``launch/serve_step.py``), the
+prefill cell the sharded ``prefill_logits`` (``models/transformer.py``)
+with each rank's attention on the flash kernel's op.  The train cell waits
+for ROADMAP item 13c, and the meta-device dry run that sweeps the cells
+for 13d.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import torch
 
 from repro_torch.configs import get_arch, get_shape, shape_applicable
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.launch import serve_step as SS
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import transformer as T
 
 
@@ -38,6 +42,39 @@ def params_struct(cfg: ArchConfig, dtype) -> Any:
 
 def _param_shardings(mesh, cfg, pshape):
     return T.param_pspecs(pshape, cfg, model_size=mesh.shape["model"])
+
+
+def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                       compute_dtype=torch.bfloat16) -> Cell:
+    """The rank's ``fn(params, tokens, frontend=None)`` -> its rows of the
+    last position's (B, V) f32 logits.  Sequence-parallel residuals pay off
+    for prefill only where attention shards by heads: heads that divide
+    the model axis, or MHA (zero-padded to it); GQA archs with heads that
+    do not (hymba's 25 over 5 KV heads) keep them whole.  The reference
+    computes in bf16; ``compute_dtype`` lets a check run f32."""
+    dp_axes, model_axis = mesh_axes(mesh)
+    mp = mesh.shape["model"]
+    sp = (cfg.n_heads % mp == 0 or cfg.n_heads == cfg.n_kv_heads) \
+        if cfg.n_heads else True
+    ctx = T.ParallelCtx(mesh=mesh, dp_axes=dp_axes, model_axis=model_axis,
+                        remat=False, compute_dtype=compute_dtype,
+                        seq_parallel=sp)
+    has_fe = cfg.n_frontend_tokens > 0
+
+    def fn(params, tokens, frontend=None):
+        return T.prefill_logits(params, tokens, cfg, ctx, frontend=frontend,
+                                attention=flash_attention_op)
+
+    pshape = params_struct(cfg, compute_dtype)
+    b, s = shape.global_batch, shape.seq_len
+    args = [pshape, torch.empty((b, s), dtype=torch.int32, device="meta")]
+    ins = [_param_shardings(mesh, cfg, pshape), (ctx.dp, None)]
+    if has_fe:
+        args.append(torch.empty((b, cfg.n_frontend_tokens, cfg.d_model),
+                                dtype=compute_dtype, device="meta"))
+        ins.append((ctx.dp, None, None))
+    return Cell(cfg, shape, fn, tuple(args), tuple(ins), donate=(),
+                meta={"kind": "prefill", "ctx": ctx})
 
 
 def build_decode_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
@@ -63,7 +100,8 @@ def build_cell(arch_name: str, shape_name: str, mesh,
     ok, _ = shape_applicable(cfg, shape)
     if not ok:
         return None
-    if shape.kind != "decode":
-        item = "13c" if shape.kind == "train" else "13b"
-        raise NotImplementedError(f"the {shape.kind} cell is ROADMAP item {item}")
+    if shape.kind == "train":
+        raise NotImplementedError("the train cell is ROADMAP item 13c")
+    if shape.kind == "prefill":
+        return build_prefill_cell(cfg, shape, mesh)
     return build_decode_cell(cfg, shape, mesh, kv_dtype=kv_dtype)

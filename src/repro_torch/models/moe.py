@@ -1,12 +1,16 @@
-"""Mixture-of-experts FFN (PyTorch), single device.
+"""Mixture-of-experts FFN (PyTorch) with expert parallelism.
 
 Two paths, as in the reference:
 
 * ``moe_ffn_reference`` — exact loop-over-experts oracle (no capacity drops).
-* ``moe_ffn`` — capacity-bounded sort-based dispatch: the reference's
-  ``_dispatch_local`` on one shard holding every expert.  Expert
-  parallelism (the reference's ``shard_map`` path) comes with the
-  multi-device launch layer.
+* ``moe_ffn`` — capacity-bounded sort-based dispatch (the reference's
+  ``_dispatch_local``).  Without a mesh one shard holds every expert.  On a
+  rank of a mesh (expert parallelism, EP) the experts are cut over the
+  model axis: the tokens are the rank's rows, replicated over the axis,
+  each rank dispatches only the entries routed to *its* ``e_local``
+  experts, and one sum over the axis combines them, as the reference's
+  ``psum`` inside its ``shard_map``.  The router and its aux loss run on
+  the rank's rows; the capacity comes from the rank's token count.
 
 What the port keeps bit for bit from the reference, and how:
 
@@ -35,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import matmul, normal_, swiglu
+from repro_torch.models.layers import matmul, model_ranks, normal_, swiglu
 
 
 def padded_experts(moe: MoEConfig, ep_align: int = 16) -> int:
@@ -161,24 +165,41 @@ def capacity(t: int, moe: MoEConfig) -> int:
     return max(int(t * moe.top_k / moe.n_experts * moe.capacity_factor), 8)
 
 
-def moe_ffn(params, x, moe: MoEConfig):
+def moe_ffn(params, x, moe: MoEConfig, *, mesh=None, model_axis="model"):
     """Routed + shared expert FFN.  x: (B, S, d) (or (T, d)).
 
-    Single-shard capacity-bounded dispatch over every (B * S) row of the
-    call.  Returns (out in x's dtype, aux_loss)."""
+    Capacity-bounded dispatch over every (B * S) row of the call.  On a
+    rank of ``mesh`` (more than one rank on ``model_axis``): ``x`` is the
+    rank's rows, the expert tables (and the shared experts) are its blocks
+    under ``param_pspecs``, and the output is summed over the axis.
+    Returns (out in x's dtype, aux_loss)."""
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
     b, s, d = x.shape
     xt = x.reshape(-1, d)
     eids, gates, aux = router_topk(params, xt, moe)
-    ex = params["experts"]
-    out = _dispatch_local(xt, eids, gates, ex["wg"], ex["wu"], ex["wd"],
-                          e_base=0, e_local=ex["wg"].shape[0],
-                          cap=capacity(b * s, moe))
+    wg, wu, wd = (params["experts"][n] for n in ("wg", "wu", "wd"))
+    ep, rank = model_ranks(mesh, model_axis)
+    e_pad = padded_experts(moe)
+    e_local = e_pad // ep if e_pad % ep == 0 else -(-moe.n_experts // ep)
+    if wg.shape[0] == e_pad and ep > 1:
+        # a whole table (e_pad does not divide EP): pad it to e_local * ep
+        # experts, as the reference does, and take this rank's block
+        if e_local * ep < e_pad:
+            raise ValueError(f"{e_pad} experts do not fit {ep} ranks of "
+                             f"{e_local}")
+        lo, hi = rank * e_local, (rank + 1) * e_local
+        wg, wu, wd = (F.pad(w, (0, 0, 0, 0, 0, e_local * ep - e_pad))[lo:hi]
+                      for w in (wg, wu, wd))
+    out = _dispatch_local(xt, eids, gates, wg, wu, wd, e_base=rank * e_local,
+                          e_local=e_local, cap=capacity(b * s, moe))
+    if ep > 1:
+        out = mesh.all_reduce(out, model_axis, "sum")
     out = out.reshape(b, s, d).to(x.dtype)
     if moe.n_shared:
-        out = out + swiglu(params["shared"], x)
+        out = out + swiglu(params["shared"], x, mesh, model_axis,
+                           moe.n_shared * moe.d_expert)
     if squeeze:
         out = out[0]
     return out, aux

@@ -16,6 +16,19 @@ and a (K-1)-deep conv ring; it has no kernel.
 Every dtype cast of the reference is kept: the causal conv sums in the
 input's dtype and applies SiLU in f32, ``dt`` is f32, and y is cast to the
 input's dtype before the gate.
+
+On a rank of a mesh (``mesh``, ``axis``: tensor parallelism over the model
+axis) the weights are this rank's blocks under ``param_pspecs``: ``wz``,
+``wx``, ``wdt`` and ``conv_x`` column-parallel, ``wbc`` and ``conv_bc``
+whole, ``A_log``, ``D`` and ``dt_bias`` cut on heads, ``gate_norm`` on
+``d_inner``, ``out_proj`` row-parallel.  The recurrence runs on the part
+of the SSD state the rank owns (``tp_layout``, the placement of the
+decode state ``ssm_h``): its block of heads; else, where the heads do not
+divide the axis, every head's block of head_dim (the recurrence is
+independent per head_dim row); else all of it.  ``x`` and the outputs are
+whole and replicated over the axis; the gate norm's mean of squares is
+summed over it, and the decode's conv ring (replicated) gets the rank's
+``x`` columns back in one all-gather.
 """
 from __future__ import annotations
 
@@ -24,7 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ops import ssd_scan_op
-from repro_torch.models.layers import matmul, rms_norm
+from repro_torch.models.layers import (matmul, model_ranks, rms_norm,
+                                       row_parallel)
 
 
 def ssm_dims(d_model: int, ssm: SSMConfig):
@@ -122,42 +136,122 @@ def ssd_chunked(x, dt, A, B_mat, C_mat, D, chunk: int, h0=None):
     return y.reshape(b, s, h, p), hprev
 
 
-def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False):
-    """Full SSD mixer over a sequence.  x: (B,S,d_model)."""
+# --------------------------------------------------------------------------
+# Tensor parallelism
+# --------------------------------------------------------------------------
+
+def tp_layout(n_heads: int, head_dim: int, tp: int):
+    """The dim of the SSD state (B, H, P, N) that ``tp`` model ranks cut:
+    "heads", else "head_dim", else None (replicated), as ``decode_struct``
+    places ``ssm_h``."""
+    if n_heads % tp == 0:
+        return "heads"
+    if head_dim % tp == 0:
+        return "head_dim"
+    return None
+
+
+def _block(x, n, rank, dim=-1):
+    """This rank's block of ``n`` along ``dim``."""
+    return x.narrow(dim, rank * n, n)
+
+
+def _conv_b(params, d_inner, rank):
+    """The conv bias of this rank's conv channels: its block of the x
+    channels (where ``conv_x`` is cut), then the whole B/C part."""
+    cb, nx = params["conv_b"], params["conv_x"].shape[-1]
+    if nx == d_inner:
+        return cb
+    return torch.cat([_block(cb[:d_inner], nx, rank), cb[d_inner:]])
+
+
+def _state_part(xs, dt, params, ssm: SSMConfig, n_heads, mesh, axis):
+    """The rank's part of the SSD inputs.  ``xs`` (..., d_inner_cols) is
+    the conv output on the rank's x columns, ``dt`` (..., H_cols) its dt
+    before the bias.  Returns xs (..., H_l, P_l), dt (..., H_l) after
+    softplus, A (H_l,) and D (H_l,) for ``tp_layout``'s part."""
+    tp, rank = model_ranks(mesh, axis)
+    layout = tp_layout(n_heads, ssm.head_dim, tp)
+    if layout != "heads" and xs.shape[-1] != n_heads * ssm.head_dim:
+        xs = mesh.all_gather(xs, axis, dim=-1)
+    xs = xs.reshape(*xs.shape[:-1], -1, ssm.head_dim)
+    if layout == "head_dim":
+        xs = _block(xs, ssm.head_dim // tp, rank)
+    dt = _softplus(dt.float() + params["dt_bias"])
+    return xs, dt, -torch.exp(params["A_log"]), params["D"]
+
+
+def _gate_out(y, z, params, d_inner, ssm: SSMConfig, n_heads, mesh, axis):
+    """y (..., H_l, P_l) in x's dtype -> the gated, normed, projected
+    output, whole and replicated over the axis."""
+    tp, rank = model_ranks(mesh, axis)
+    if tp_layout(n_heads, ssm.head_dim, tp) == "head_dim":
+        y = mesh.all_gather(y, axis, dim=-1)
+    y = y.reshape(*y.shape[:-2], -1)
+    if y.shape[-1] != z.shape[-1]:                # back to z's column block
+        y = _block(y, z.shape[-1], rank)
+    y = y * F.silu(z.float()).to(y.dtype)
+    if z.shape[-1] == d_inner:
+        y = rms_norm(params["gate_norm"], y)
+    else:                                         # the mean over all d_inner
+        yf = y.float()
+        var = mesh.all_reduce((yf * yf).sum(-1, keepdim=True), axis, "sum")
+        y = (yf * torch.rsqrt(var / d_inner + 1e-5)
+             * (1.0 + params["gate_norm"].float())).to(y.dtype)
+    return row_parallel(y, params["out_proj"], d_inner, mesh, axis)
+
+
+def _groups(mat, n_heads, xs_heads, mesh, axis):
+    """B or C (..., G, N) for the heads of ``xs_heads``: as it is with one
+    group or every head; else one group per local head."""
+    g = mat.shape[-2]
+    if g == 1 or xs_heads == n_heads:
+        return mat
+    per_head = mat.repeat_interleave(n_heads // g, dim=-2)
+    return _block(per_head, xs_heads, model_ranks(mesh, axis)[1], dim=-2)
+
+
+def _pad_steps(chunk, s, *ts):
+    """Pad dim 1 of each tensor to a multiple of ``chunk``.  Padded steps
+    have dt = 0: they neither add to nor decay the state, so the final
+    state is exact for any prompt length."""
+    pad = (-s) % chunk
+    return [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+            for t in ts]
+
+
+def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False, *,
+                mesh=None, axis="model"):
+    """Full SSD mixer over a sequence.  x: (B,S,d_model).  ``mesh``: see
+    the module docstring (``return_state`` is for one rank)."""
     b, s, _ = x.shape
     d_inner, n_heads, d_bc = ssm_dims(d_model, ssm)
     g, n = ssm.n_groups, ssm.d_state
+    tp, rank = model_ranks(mesh, axis)
+    if return_state and tp > 1:
+        raise ValueError("return_state takes one rank")
 
     z, xs, bc, dt = _project(params, x)
     xbc_raw = torch.cat([xs, bc], dim=-1)
     conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=-1)
-    xbc = _causal_conv(conv_w, params["conv_b"], xbc_raw, ssm.conv_kernel)
-    xs = xbc[..., :d_inner].reshape(b, s, n_heads, ssm.head_dim)
-    B_mat = xbc[..., d_inner:d_inner + g * n].reshape(b, s, g, n)
-    C_mat = xbc[..., d_inner + g * n:].reshape(b, s, g, n)
-    dt = _softplus(dt.float() + params["dt_bias"])
+    xbc = _causal_conv(conv_w, _conv_b(params, d_inner, rank), xbc_raw,
+                       ssm.conv_kernel)
+    nx = xs.shape[-1]                  # this rank's x columns
+    B_mat = xbc[..., nx:nx + g * n].reshape(b, s, g, n)
+    C_mat = xbc[..., nx + g * n:].reshape(b, s, g, n)
+    xs, dt, A, D = _state_part(xbc[..., :nx], dt, params, ssm, n_heads,
+                               mesh, axis)
+    B_mat = _groups(B_mat, n_heads, xs.shape[2], mesh, axis)
+    C_mat = _groups(C_mat, n_heads, xs.shape[2], mesh, axis)
+
+    chunk = min(ssm.chunk_size, s)
+    xs, dt, B_mat, C_mat = _pad_steps(chunk, s, xs, dt, B_mat, C_mat)
     # f32 for the kernel: a bf16 compute copy (``cast_for_compute`` casts
     # the stacked A_log) gives a bf16 A, which the reference promotes
     # exactly to f32 in ``dt * A``
-    A = -torch.exp(params["A_log"]).float()
-
-    # padded steps have dt = 0: they neither add to nor decay the state, so
-    # the final state is exact for any prompt length
-    chunk = min(ssm.chunk_size, s)
-    pad = (-s) % chunk
-    if pad:
-        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B_mat = F.pad(B_mat, (0, 0, 0, 0, 0, pad))
-        C_mat = F.pad(C_mat, (0, 0, 0, 0, 0, pad))
-
-    y, hT = ssd_scan_op(xs, dt, A, B_mat, C_mat, chunk=chunk)
-    y = y + params["D"][None, None, :, None] * xs.float()
-    y = y[:, :s].reshape(b, s, d_inner).to(x.dtype)
-
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(params["gate_norm"], y)
-    out = matmul(y, params["out_proj"])
+    y, hT = ssd_scan_op(xs, dt, A.float(), B_mat, C_mat, chunk=chunk)
+    y = (y + D[None, None, :, None] * xs.float())[:, :s].to(x.dtype)
+    out = _gate_out(y, z, params, d_inner, ssm, n_heads, mesh, axis)
     if not return_state:
         return out
     # decode-ready state: SSD state + conv ring of the last (K-1) raw xBC
@@ -184,43 +278,50 @@ def ssm_init_state(batch, d_model, ssm: SSMConfig, dtype=torch.float32,
     }
 
 
-def ssm_decode_step(params, x, state, d_model, ssm: SSMConfig):
+def ssm_decode_step(params, x, state, d_model, ssm: SSMConfig, *,
+                    mesh=None, axis="model"):
     """One-token step.  x: (B, d_model).  Returns (y, new_state).
 
     Every row advances, as in the reference: the engine overwrites a batch
-    slot's state on prefill and resume."""
+    slot's state on prefill and resume.  ``mesh``: see the module
+    docstring; ``state["h"]`` is then the rank's part (``tp_layout``) and
+    ``state["conv"]`` whole."""
     b = x.shape[0]
     d_inner, n_heads, d_bc = ssm_dims(d_model, ssm)
     g, n = ssm.n_groups, ssm.d_state
+    _, rank = model_ranks(mesh, axis)
 
     z, xs, bc, dt = _project(params, x)
-    xbc = torch.cat([xs, bc], dim=-1)
-    hist, xbc = _promote(state["conv"], xbc[:, None, :])
+    nx = xs.shape[-1]                  # this rank's x columns
+    # the conv ring holds every x column: gather the rank's
+    xs_all = xs if nx == d_inner else mesh.all_gather(xs, axis, dim=-1)
+    hist, xbc = _promote(state["conv"],
+                         torch.cat([xs_all, bc], dim=-1)[:, None, :])
     hist = torch.cat([hist, xbc], dim=1)
-    conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=-1)
-    hist_c, conv_w = _promote(hist, conv_w)
-    conv = torch.einsum("bkc,kc->bc", hist_c, conv_w) + params["conv_b"]
-    conv = F.silu(conv.float()).to(x.dtype)
     new_conv = hist[:, 1:, :]
+    # the conv of the rank's channels: its x columns, then B/C
+    mine = hist if nx == d_inner else torch.cat(
+        [_block(hist[..., :d_inner], nx, rank), hist[..., d_inner:]], dim=-1)
+    conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=-1)
+    mine, conv_w = _promote(mine, conv_w)
+    conv = torch.einsum("bkc,kc->bc", mine, conv_w) + \
+        _conv_b(params, d_inner, rank)
+    conv = F.silu(conv.float()).to(x.dtype)
 
-    xs = conv[..., :d_inner].reshape(b, n_heads, ssm.head_dim)
-    B_mat = conv[..., d_inner:d_inner + g * n].reshape(b, g, n)
-    C_mat = conv[..., d_inner + g * n:].reshape(b, g, n)
-    dt = _softplus(dt.float() + params["dt_bias"])          # (B,H)
-    A = -torch.exp(params["A_log"])
+    B_mat = conv[..., nx:nx + g * n].reshape(b, g, n)
+    C_mat = conv[..., nx + g * n:].reshape(b, g, n)
+    xs, dt, A, D = _state_part(conv[..., :nx], dt, params, ssm, n_heads,
+                               mesh, axis)
+    hl = xs.shape[1]
+    Bh = _groups(B_mat, n_heads, hl, mesh, axis)
+    Ch = _groups(C_mat, n_heads, hl, mesh, axis)
+    Bh = Bh.repeat_interleave(hl // Bh.shape[1], dim=1).float()   # (B,H_l,N)
+    Ch = Ch.repeat_interleave(hl // Ch.shape[1], dim=1).float()
 
-    hpg = n_heads // g
-    Bh = B_mat.repeat_interleave(hpg, dim=1).float()        # (B,H,N)
-    Ch = C_mat.repeat_interleave(hpg, dim=1).float()
-
-    a = torch.exp(dt * A[None, :])                          # (B,H)
+    a = torch.exp(dt * A[None, :])                          # (B,H_l)
     h = state["h"] * a[:, :, None, None] + torch.einsum(
         "bh,bhp,bhn->bhpn", dt, xs.float(), Bh)
     y = torch.einsum("bhn,bhpn->bhp", Ch, h)
-    y = y + params["D"][None, :, None] * xs.float()
-    y = y.reshape(b, d_inner).to(x.dtype)
-
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(params["gate_norm"], y)
-    out = matmul(y, params["out_proj"])
+    y = (y + D[None, :, None] * xs.float()).to(x.dtype)
+    out = _gate_out(y, z, params, d_inner, ssm, n_heads, mesh, axis)
     return out, {"h": h, "conv": new_conv}

@@ -17,18 +17,27 @@ each layer and each loss chunk recomputed in the backward when
 
 Sharding is expressed as in the reference: ``param_pspecs`` gives each
 parameter a placement (per dim, a mesh axis name or None) keyed on its path,
-and ``ParallelCtx`` carries the rank mesh (``launch/mesh.py``) and its model
-axis.  The sharded serve step (``launch/serve_step.py``) reads
-them; the forward, the prefill and the loss here still run on one device
-(the vocab-sharded loss and the sharded forward are ROADMAP items 13b-13c).
+and ``ParallelCtx`` carries the rank mesh (``launch/mesh.py``), its batch
+and model axes and ``seq_parallel``.  The reference runs one SPMD program
+over global arrays and lets GSPMD insert the collectives; here each rank
+runs the forward on its local shards (its rows of the batch, its blocks of
+the weights) and the collectives are written out: Megatron TP over the
+model axis (column-parallel projections, row-parallel ones summed), the
+vocab-parallel embedding and logits, expert parallelism in the MoE FFN,
+and, under ``seq_parallel``, residuals cut on the sequence between layers
+(``Rows``: each mixer and FFN gathers the sequence and keeps its rows of
+the sum).  A dim that ``param_pspecs`` leaves whole takes the unsharded
+path.  The loss (``lm_loss``) still runs on one device (the vocab-sharded
+loss is ROADMAP item 13c).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, List
+from typing import Any, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_flatten, tree_unflatten
@@ -37,7 +46,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
-                                       records_grad, rms_norm, swiglu)
+                                       model_ranks, records_grad, rms_norm,
+                                       row_parallel, swiglu)
 
 
 # --------------------------------------------------------------------------
@@ -46,10 +56,9 @@ from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
 
 @dataclass(frozen=True)
 class ParallelCtx:
-    """Rank mesh + model axis + model-execution knobs.  The reference's
-    batch axes (``dp_axes``, ``dp``, ``dp_size``) come with the sharded
-    forward that reads them (ROADMAP item 13b)."""
+    """Rank mesh + axis names + model-execution knobs."""
     mesh: Any = None            # a launch.mesh.Mesh, or None on one device
+    dp_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"   # the axis of the placements' "model" entries
     remat: bool = True          # recompute each layer and loss chunk in the
                                 # backward (read only under autograd)
@@ -58,6 +67,57 @@ class ParallelCtx:
     loss_chunk: int = 256
     compute_dtype: Any = torch.float32
     attn_impl: str = "reference"          # unread, as in the reference
+    seq_parallel: bool = False            # cut residuals on S over model
+
+    def residual_spec(self):
+        """Layer-boundary placement of a (B, S, d) activation."""
+        return (self.dp, self.model_axis if self.seq_parallel else None,
+                None)
+
+    @property
+    def dp(self):
+        """The batch axes as one placement entry."""
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    @property
+    def tp(self) -> int:
+        """Ranks on the model axis (1 without a mesh)."""
+        return model_ranks(self.mesh, self.model_axis)[0]
+
+
+@dataclass(frozen=True)
+class Rows:
+    """The rows of a (B, S, ...) activation that this rank holds between
+    layers (``residual_spec``), and the moves between them and the whole
+    sequence every rank of the model axis shares: all S, or under
+    ``seq_parallel`` (with more than one model rank) its block of
+    ``ceil(S / tp)`` rows, the last block padded past S.  Every reference
+    ``shard(x, ctx, *ctx.residual_spec())`` is a ``take`` here, and a
+    mixer's or FFN's replicated input a ``gather``."""
+    ctx: ParallelCtx
+    s: int
+
+    @property
+    def cut(self) -> bool:
+        """``residual_spec`` cuts S, over more than one rank."""
+        return self.ctx.residual_spec()[1] is not None and self.ctx.tp > 1
+
+    def take(self, x):
+        """The whole sequence (replicated over model) -> this rank's rows."""
+        if not self.cut:
+            return x
+        tp = self.ctx.tp
+        n = -(-self.s // tp)
+        if n * tp != x.shape[1]:
+            x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, n * tp - x.shape[1]))
+        return x[:, self.ctx.mesh.index(self.ctx.model_axis) * n:][:, :n]
+
+    def gather(self, x):
+        """This rank's rows -> the whole sequence."""
+        if not self.cut:
+            return x
+        whole = self.ctx.mesh.all_gather(x, self.ctx.model_axis, dim=1)
+        return whole[:, :self.s]
 
 
 # --------------------------------------------------------------------------
@@ -344,34 +404,71 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
     """Projections + RoPE + attention + output projection.  ``kv``: the
     states a cross-attention reads (no RoPE then).  ``attention(q, k, v,
     causal=, window=)`` replaces the blockwise path (the prefill passes the
-    flash kernel's op)."""
+    flash kernel's op).
+
+    On a rank of a mesh ``x`` and ``kv`` are whole (replicated over model)
+    and so is the output; the reference's four TP branches: q by heads
+    where the heads divide the model axis, K/V too where theirs do, else
+    K/V whole and repeated to the query heads; MHA whose heads do not
+    divide it zero-padded to the next multiple; else attention whole on
+    every rank."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     src = kv if kv is not None else x
-    q = matmul(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = matmul(src, p["wk"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = matmul(src, p["wv"]).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    tp, mesh, ax = ctx.tp, ctx.mesh, ctx.model_axis
+    q_shardable = cfg.n_heads % tp == 0
+    kv_shardable = cfg.n_kv_heads % tp == 0
+    q, k, v = matmul(x, p["wq"]), matmul(src, p["wk"]), matmul(src, p["wv"])
+    if tp > 1 and not q_shardable and q.shape[-1] != cfg.n_heads * hd:
+        q = mesh.all_gather(q, ax, dim=-1)      # the heads' columns, whole
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, src.shape[1], -1, hd)
+    v = v.reshape(b, src.shape[1], -1, hd)
     if kv is None and cfg.rope_theta > 0:
         pos = positions if positions is not None else \
             torch.arange(s, device=x.device)[None]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+
+    n_pad = 0
+    if tp > 1 and q_shardable and not kv_shardable:
+        # K/V whole: each local query head takes its KV head (the
+        # reference's repeat to the query heads, then its shard of them)
+        hl = q.shape[2]
+        first = mesh.index(ax) * hl
+        idx = torch.arange(first, first + hl, device=x.device) // \
+            (cfg.n_heads // cfg.n_kv_heads)
+        k, v = k[:, :, idx], v[:, :, idx]
+    elif tp > 1 and not q_shardable and cfg.n_heads == cfg.n_kv_heads:
+        # MHA with heads that do not divide TP (whisper 20H): zero-pad to
+        # the next multiple and take this rank's heads; a zero query over
+        # zero keys and values gives zeros, sliced off below
+        hl = -(-cfg.n_heads // tp)
+        n_pad = hl * tp - cfg.n_heads
+        first = mesh.index(ax) * hl
+        q, k, v = (F.pad(t, (0, 0, 0, n_pad))[:, :, first:first + hl]
+                   for t in (q, k, v))
     if attention is None:
         out = attn_lib.blockwise_attention(
             q, k, v, causal=causal, window=window,
             q_block=q_block or ctx.q_block, kv_block=ctx.kv_block)
     else:
         out = attention(q, k, v, causal=causal, window=window)
-    return matmul(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
+    if n_pad:
+        out = mesh.all_gather(out, ax, dim=2)[:, :, :cfg.n_heads]
+    return row_parallel(out.reshape(b, s, -1), p["wo"], cfg.n_heads * hd,
+                        mesh, ax)
 
 
-def _apply_ffn(p, x, cfg: ArchConfig, seg: Segment):
-    """The layer's FFN: (out, aux loss); only MoE has an aux loss."""
+def _apply_ffn(p, x, cfg: ArchConfig, ctx: ParallelCtx, seg: Segment):
+    """The layer's FFN: (out, aux loss); only MoE has an aux loss.  On a
+    rank of a mesh ``x`` and the output are whole, replicated over model."""
     if seg.ffn == "moe":
-        return moe_lib.moe_ffn(p["moe"], x, cfg.moe)
-    if seg.ffn == "gelu":
-        return gelu_mlp(p["mlp"], x), 0.0
-    return swiglu(p["mlp"], x), 0.0
+        return moe_lib.moe_ffn(p["moe"], x, cfg.moe, mesh=ctx.mesh,
+                               model_axis=ctx.model_axis)
+    f = seg.d_ff or cfg.d_ff
+    mlp = gelu_mlp if seg.ffn == "gelu" else swiglu
+    return mlp(p["mlp"], x, ctx.mesh, ctx.model_axis, f), 0.0
 
 
 def add_mixer(p, x, a, y, cfg: ArchConfig):
@@ -392,32 +489,37 @@ def xgate(p, x):
 
 
 def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
-                frontend=None, positions=None, attention=None):
-    """One layer.  x: (B, S, d); ``frontend``: the (B, N, d) states the
-    cross-attention reads; ``attention`` as in ``_attend``, for the
-    self-attention.  Returns (x, aux_loss)."""
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+                frontend=None, positions=None, attention=None, rows=None):
+    """One layer.  x: (B, S, d), or this rank's rows of it (``rows``, a
+    ``Rows``); ``frontend``: the (B, N, d) states the cross-attention reads;
+    ``attention`` as in ``_attend``.  Returns (x, aux_loss)."""
+    rows = rows or Rows(ctx, x.shape[1])
+    h = rows.gather(rms_norm(p["ln1"], x, cfg.norm_eps))
     if seg.kind == "xattn":
-        x = x + xgate(p, x) * _attend(p["xattn"], h, cfg, ctx, window=0,
-                                      causal=False, kv=frontend, q_block=256)
+        x = x + xgate(p, x) * rows.take(_attend(
+            p["xattn"], h, cfg, ctx, window=0, causal=False, kv=frontend,
+            q_block=256, attention=attention))
     else:
         a = y = None
         if seg.kind in ("attn", "enc", "dec", "hybrid"):
-            a = _attend(p["attn"], h, cfg, ctx, window=seg.window,
-                        causal=seg.kind != "enc", positions=positions,
-                        attention=attention)
+            a = rows.take(_attend(p["attn"], h, cfg, ctx, window=seg.window,
+                                  causal=seg.kind != "enc",
+                                  positions=positions, attention=attention))
         if seg.kind in ("ssm", "hybrid"):
-            y = ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm)
+            y = rows.take(ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model,
+                                              cfg.ssm, mesh=ctx.mesh,
+                                              axis=ctx.model_axis))
         x = add_mixer(p, x, a, y, cfg)
         if seg.kind == "dec":
-            hx = rms_norm(p["lnx"], x, cfg.norm_eps)
-            x = x + _attend(p["xattn"], hx, cfg, ctx, window=0, causal=False,
-                            kv=frontend, q_block=256)
+            hx = rows.gather(rms_norm(p["lnx"], x, cfg.norm_eps))
+            x = x + rows.take(_attend(p["xattn"], hx, cfg, ctx, window=0,
+                                      causal=False, kv=frontend, q_block=256,
+                                      attention=attention))
     aux = 0.0
     if seg.ffn != "none":
-        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        out, aux = _apply_ffn(p, h2, cfg, seg)
-        x = x + out
+        h2 = rows.gather(rms_norm(p["ln2"], x, cfg.norm_eps))
+        out, aux = _apply_ffn(p, h2, cfg, ctx, seg)
+        x = x + rows.take(out)
     return x, aux
 
 
@@ -432,11 +534,12 @@ def _unstack(p_stack, n):
 
 
 def run_segments(seg_params, segs, x, cfg, ctx, frontend=None,
-                 positions=None, attention=None):
-    """Apply all segments, layer by layer over the stacked parameters.
-    With ``ctx.remat`` under autograd each layer is checkpointed, as the
-    reference's ``jax.checkpoint`` of its scan body: the backward keeps
-    only each layer's input and recomputes the rest."""
+                 positions=None, attention=None, rows=None):
+    """Apply all segments, layer by layer over the stacked parameters
+    (``rows`` as in ``apply_layer``).  With ``ctx.remat`` under autograd
+    each layer is checkpointed, as the reference's ``jax.checkpoint`` of
+    its scan body: the backward keeps only each layer's input and
+    recomputes the rest."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_stack, seg in zip(seg_params, segs):
         remat = ctx.remat and records_grad(x, *tree_flatten(p_stack)[0])
@@ -444,7 +547,7 @@ def run_segments(seg_params, segs, x, cfg, ctx, frontend=None,
             def layer(x, p_layer=p_layer, seg=seg):
                 return apply_layer(p_layer, x, seg, cfg, ctx,
                                    frontend=frontend, positions=positions,
-                                   attention=attention)
+                                   attention=attention, rows=rows)
             x, a = (checkpoint(layer, x, use_reentrant=False) if remat
                     else layer(x))
             aux_total = aux_total + a
@@ -472,31 +575,75 @@ def encode(params, frontend, cfg: ArchConfig, ctx: ParallelCtx,
            attention=None):
     """Whisper's encoder over the (B, N, d) frame embeddings: sinusoidal
     positions, the ``enc`` layers (``attention`` as in ``_attend``), then
-    ``enc_ln``."""
+    ``enc_ln``.  On a rank of a mesh the output is whole, replicated over
+    model (the frames are cut on N between layers under
+    ``seq_parallel``)."""
     e = frontend.to(ctx.compute_dtype)
     e = e + _sinusoidal(e.shape[1], cfg.d_model, e.device).to(e.dtype)
-    e, _ = run_segments(params["enc_segments"], encoder_segments(cfg), e, cfg,
-                        ctx, attention=attention)
-    return rms_norm(params["enc_ln"], e, cfg.norm_eps)
+    rows = Rows(ctx, e.shape[1])
+    e, _ = run_segments(params["enc_segments"], encoder_segments(cfg),
+                        rows.take(e), cfg, ctx, attention=attention,
+                        rows=rows)
+    return rows.gather(rms_norm(params["enc_ln"], e, cfg.norm_eps))
+
+
+def embed(params, tokens, cfg: ArchConfig, ctx: ParallelCtx):
+    """Token ids (any shape) -> their embeddings in ``ctx.compute_dtype``,
+    replicated over model.  Vocab-parallel where ``embed``'s rows are cut:
+    each rank holds rows [lo, lo + n), and the sum over model is exact
+    (one rank adds the row, the rest add zeros)."""
+    e = params["embed"]
+    if e.shape[0] == cfg.padded_vocab:
+        return e[tokens].to(ctx.compute_dtype)
+    n = e.shape[0]
+    idx = tokens.long() - ctx.mesh.index(ctx.model_axis) * n
+    mine = (idx >= 0) & (idx < n)
+    x = torch.where(mine[..., None], e[idx.clamp(0, n - 1)],
+                    torch.zeros((), dtype=e.dtype, device=e.device))
+    return ctx.mesh.all_reduce(x.to(ctx.compute_dtype), ctx.model_axis, "sum")
+
+
+def logits(params, h, cfg: ArchConfig, ctx: ParallelCtx):
+    """(..., d) final hidden states -> (..., V) f32 logits with the padded
+    vocab tail masked, replicated over model.  A tied unembedding is
+    vocab-parallel where ``embed``'s rows are cut (this rank's columns,
+    masked by global id, then gathered); an untied one is cut on d, as in
+    the reference (the "embed" rule also matches "unembed"), and its
+    logits summed."""
+    w = unembed_matrix(params, cfg).to(h.dtype)
+    if w.shape[1] == cfg.padded_vocab:
+        return mask_vocab_pad(row_parallel(h, w, cfg.d_model, ctx.mesh,
+                                           ctx.model_axis).float(), cfg)
+    out = matmul(h, w).float()
+    lo = ctx.mesh.index(ctx.model_axis) * w.shape[1]
+    ids = lo + torch.arange(w.shape[1], device=h.device)
+    out = torch.where(ids < cfg.vocab, out, -1e30)
+    return ctx.mesh.all_gather(out, ctx.model_axis, dim=-1)
 
 
 def forward_hidden(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
-                   frontend=None):
+                   frontend=None, attention=None):
     """Token ids (B, S) -> (final hidden states (B, S, d), aux loss).
     ``frontend``: whisper's (B, N, d) frame embeddings (required for the
     audio arch), or the (B, N, d) patch embeddings llama-vision's
-    cross-attention layers read."""
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    cross-attention layers read; ``attention`` as in ``_attend``, for every
+    attention.  On a rank of a mesh: the rank's rows of the batch, and
+    under ``seq_parallel`` the hidden states are its rows of S
+    (``Rows(ctx, S)``)."""
+    s = tokens.shape[1]
+    rows = Rows(ctx, s)
+    x = embed(params, tokens, cfg, ctx)
     enc_out = None
     if cfg.family == "audio":
         if frontend is None:
             raise ValueError("the audio arch needs frame embeddings")
-        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-        enc_out = encode(params, frontend, cfg, ctx)
+        x = x + _sinusoidal(s, cfg.d_model, x.device).to(x.dtype)
+        enc_out = encode(params, frontend, cfg, ctx, attention=attention)
     elif frontend is not None:
         enc_out = frontend.to(ctx.compute_dtype)
-    x, aux = run_segments(params["segments"], segments(cfg), x, cfg, ctx,
-                          frontend=enc_out)
+    x, aux = run_segments(params["segments"], segments(cfg), rows.take(x),
+                          cfg, ctx, frontend=enc_out, attention=attention,
+                          rows=rows)
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     return x, aux
 
@@ -516,11 +663,13 @@ def mask_vocab_pad(logits, cfg: ArchConfig):
 
 
 def prefill_logits(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
-                   frontend=None):
-    """Full forward returning the last position's logits (B, V), f32."""
-    h, _ = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
-    w = unembed_matrix(params, cfg).to(h.dtype)
-    return mask_vocab_pad(matmul(h[:, -1], w).float(), cfg)
+                   frontend=None, attention=None):
+    """Full forward returning the last position's logits (B, V), f32 (on a
+    rank of a mesh: its rows of the batch, replicated over model)."""
+    h, _ = forward_hidden(params, tokens, cfg, ctx, frontend=frontend,
+                          attention=attention)
+    h = Rows(ctx, tokens.shape[1]).gather(h)
+    return logits(params, h[:, -1], cfg, ctx)
 
 
 def lm_loss(params, tokens, labels, cfg: ArchConfig, ctx: ParallelCtx,
@@ -531,7 +680,10 @@ def lm_loss(params, tokens, labels, cfg: ArchConfig, ctx: ParallelCtx,
     ``ctx.loss_chunk`` slices, each chunk's logits formed as the reference
     forms them (the product in the hidden states' dtype, then f32) with the
     padded vocab tail masked, and the chunk recomputed in the backward
-    under ``ctx.remat``.  Labels ``< 0`` are left out of the mean."""
+    under ``ctx.remat``.  Labels ``< 0`` are left out of the mean.  One
+    device only: the sharded loss is ROADMAP item 13c."""
+    if ctx.mesh is not None:
+        raise NotImplementedError("lm_loss on a mesh is ROADMAP item 13c")
     h, aux = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
     w = unembed_matrix(params, cfg).to(h.dtype)
     s = h.shape[1]

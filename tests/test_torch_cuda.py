@@ -395,7 +395,10 @@ def partial_args(arrays, cuda, q_dtype, pool, kvr, rank, seed=0):
             t(lens, torch.int32)), dict(kvr=kvr, rank=rank, **kw)
 
 
-PARTIAL_CASES = {k: PAGED_SPLIT_CASES[k] for k in ("granite", "gemma3-global", "some-empty")}
+# the sharded decode's shapes: granite and gemma3's (attn), hymba's global
+# layers (G 5), whisper's dec and deepseek's layers (G 1, padded to 4)
+PARTIAL_CASES = {k: PAGED_SPLIT_CASES[k] for k in ("granite", "gemma3-global", "some-empty",
+                                                   "hymba-global", "whisper-dec", "deepseek")}
 
 
 @pytest.mark.cuda
@@ -424,7 +427,8 @@ def test_cuda_paged_partials_match_plain(cuda, case, kvr, pool, q_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kvr", [2, 4, 8])
-@pytest.mark.parametrize("case", ["granite", "gemma3-global"])
+@pytest.mark.parametrize("case", ["granite", "gemma3-global", "hymba-global", "whisper-dec",
+                                  "deepseek"])
 def test_cuda_paged_partials_combine_to_unsplit_call(cuda, case, kvr, dtype):
     """Every rank's partials, combined over the ranks, are one
     ``paged_attention`` call over the unsplit table."""
@@ -440,3 +444,44 @@ def test_cuda_paged_partials_combine_to_unsplit_call(cuda, case, kvr, dtype):
     want = pa.paged_attention(*on_card(arrays, cuda, dtype, dtype))
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 512, 40, 64, 1, 128, 256),       # mamba2-2.7b's 80 heads over model 2
+    (1, 512, 20, 64, 1, 128, 256),       # ... over model 4
+    (1, 512, 25, 64, 1, 16, 256),        # hymba-1.5b's 50 over model 2
+    (1, 512, 50, 16, 1, 16, 256)])       # hymba's every head, head_dim 64 / 4
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_kernel_at_sharded_local_shapes(cuda, b, s, h, p, g, n, chunk,
+                                                 dtype):
+    """The scan of one rank's part of the SSD state in the sharded prefill:
+    its block of heads, or every head's block of head_dim."""
+    test_cuda_ssd_kernel_matches_plain(cuda, b, s, h, p, g, n, chunk, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d,s,causal,zero", [
+    (8, 8, 128, 77, True, 0),        # granite's 32 heads over model 4, K/V repeated
+    (8, 8, 128, 130, True, 0),       # deepseek's 16 MHA heads over model 2
+    (25, 5, 64, 100, True, 0),       # hymba's attention whole on every rank
+    (3, 3, 64, 96, False, 1),        # whisper's 20 heads padded to 24 over 8
+    (4, 4, 64, 33, True, 4)])        # a rank holding only padding heads
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_kernel_at_sharded_local_heads(cuda, hq, hkv, d, s, causal, zero,
+                                                  dtype):
+    """One rank's heads in the sharded prefill, the last ``zero`` of them
+    the zero padding of an MHA arch whose heads do not divide the model
+    axis: q, k and v all zero there, and so is the output."""
+    q, k, v = (rand(i, (n, s, d)) for i, n in enumerate((hq, hkv, hkv)))
+    for t in (q, k, v):
+        t[t.shape[0] - zero:] = 0
+    q, k, v = (torch.from_numpy(t).to(cuda, TORCH[dtype]) for t in (q, k, v))
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == n + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if zero:
+        assert torch.count_nonzero(got[hq - zero:]) == 0

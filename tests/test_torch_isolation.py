@@ -89,10 +89,9 @@ def test_launch_layer_imports_without_jax_or_reference():
     assert out.stdout.strip() == "ok"
 
 
-# what of the reference's launch layer waits, by ROADMAP item: the prefill
-# cell (13b), the train cell and its microbatching (13c)
-LAUNCH_NOT_YET = {"build_prefill_cell": "13b", "build_train_cell": "13c",
-                  "microbatches_for": "13c"}
+# what of the reference's launch layer waits, by ROADMAP item: the train
+# cell and its microbatching (13c)
+LAUNCH_NOT_YET = {"build_train_cell": "13c", "microbatches_for": "13c"}
 
 
 @pytest.mark.parametrize("module", ["repro.launch.mesh",

@@ -7,7 +7,8 @@ gloo ranks (a 2x2 data x model mesh) against the reference's
   teacher-forced steps from the same params and caches: tokens equal at
   every step, logits and the final caches within 1e-5;
 * one migration step: pools bit-equal to the reference's ``ppermute``;
-* the kinds that wait for ROADMAP item 13b raise ``NotImplementedError``.
+* the other kinds (SSM, hybrid, cross-attention, MoE; held against the
+  reference in ``test_torch_launch_serve_kinds*.py``) build a step.
 """
 import numpy as np
 import pytest
@@ -178,8 +179,12 @@ def test_migrate_step_bit_equal(runs, key):
                                   "deepseek-moe-16b", "qwen2-moe-a2.7b",
                                   "llama-3.2-vision-11b", "whisper-large-v3"])
 def test_other_kinds_wait_for_13b(name):
+    """ROADMAP item 13b is in: the serve step builds for every kind.  (The
+    name is from when these kinds waited for 13b.)"""
     from repro_torch.configs import ARCHS as T_ARCHS, reduced
     from repro_torch.launch import serve_step as SS
     mesh, plan, shape = _geometry()
-    with pytest.raises(NotImplementedError, match="13b"):
-        SS.make_serve_step(reduced(T_ARCHS[name]), shape, mesh, plan=plan)
+    fn, got_plan, ctx = SS.make_serve_step(reduced(T_ARCHS[name]), shape, mesh,
+                                           plan=plan)
+    assert callable(fn) and got_plan == plan
+    assert ctx.dp_axes == plan.batch_axes and ctx.mesh is mesh

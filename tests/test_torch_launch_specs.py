@@ -1,9 +1,12 @@
 """Placements and decode geometry of the port's launch layer against the
 reference's: ``param_pspecs`` for all 10 archs at model sizes 1, 2, 4 and
-16, and ``plan_for``, ``cache_geometry`` and ``decode_struct`` (shapes,
+16, ``plan_for``, ``cache_geometry`` and ``decode_struct`` (shapes,
 dtypes, placements) for both decode shapes, bf16 and int8 pools, on the
-production layouts.  The reference reads only ``mesh.shape`` and
-``mesh.axis_names`` there, so a stand-in mesh serves it."""
+production layouts, the SSD state's three placements, and the prefill
+cell's ``seq_parallel`` rule, context, args and input placements for all
+10 archs at model sizes 1, 2, 4 and 16.  The reference reads only
+``mesh.shape`` and ``mesh.axis_names`` in ``decode_struct``, so a stand-in
+mesh serves it; its prefill cell builds shardings, on an abstract mesh."""
 import functools
 
 import pytest
@@ -117,15 +120,18 @@ def test_decode_cell_args_and_placements(name):
 
 
 def test_build_cell_skips_what_does_not_apply_and_waits_for_13b_13c():
+    """Only the train cell still waits (13c); 13b's prefill cell and the
+    other kinds' decode cells build.  (The name is from when they waited
+    for 13b.)"""
     mesh = Mesh((16, 16), ("data", "model"))
     # pure full attention: the 500k decode working set is unbounded
     assert specs.build_cell("granite-3-8b", "long_500k", mesh) is None
     with pytest.raises(NotImplementedError, match="13c"):
         specs.build_cell("granite-3-8b", "train_4k", mesh)
-    with pytest.raises(NotImplementedError, match="13b"):
-        specs.build_cell("granite-3-8b", "prefill_32k", mesh)
-    with pytest.raises(NotImplementedError, match="13b"):
-        specs.build_cell("mamba2-2.7b", "decode_32k", mesh)
+    assert specs.build_cell("granite-3-8b", "prefill_32k", mesh).meta["kind"] \
+        == "prefill"
+    assert specs.build_cell("mamba2-2.7b", "decode_32k", mesh).meta["kind"] \
+        == "decode"
 
 
 @pytest.mark.parametrize("model_size", [2, 4])
@@ -161,3 +167,67 @@ def test_shard_to_torch_cuts_torch_leaves_as_numpy_leaves(name, model_size):
                                          dtype=torch.bfloat16)["segments"][0]["ssm"][
                 "A_log"].dtype == torch.float32
     assert torch.equal(torch.cat(wgu, dim=-1), full["segments"][0]["mlp"]["wgu"])
+
+
+@pytest.mark.parametrize("name,model_size,placement", [
+    ("mamba2-2.7b", 16, (None, "data", "model", None, None)),     # 80 heads
+    ("hymba-1.5b", 4, (None, "data", None, "model", None)),       # 50 heads
+    ("hymba-1.5b", 3, (None, "data", None, None, None))])         # neither
+def test_ssm_state_placements(name, model_size, placement):
+    """``ssm_h`` is cut on heads where they divide the model axis, else on
+    head_dim, else whole, as the reference's ``decode_struct`` and the SSM
+    decode's ``tp_layout`` cut it; the conv ring stays whole."""
+    from repro_torch.models.ssm import ssm_dims, tp_layout
+    shape = (2, model_size)
+    plan = SS.plan_for(T_SHAPES["decode_32k"], Mesh(shape, ("data", "model")))
+    got = SS.decode_struct(T_ARCHS[name], T_SHAPES["decode_32k"],
+                           Mesh(shape, ("data", "model")), plan)[1]
+    ref_plan = ref_SS.plan_for(SHAPES["decode_32k"], StandIn(shape, ("data", "model")))
+    want = _tuples(ref_SS.decode_struct(ARCHS[name], SHAPES["decode_32k"],
+                                        StandIn(shape, ("data", "model")),
+                                        ref_plan)[1])
+    states = [s["ssm_h"] for s in got if "ssm_h" in s]
+    assert states and all(s == placement for s in states)
+    assert [s["ssm_h"] for s in want if "ssm_h" in s] == states
+    assert all(s["ssm_conv"] == (None, "data", None, None) for s in got if "ssm_conv" in s)
+    cfg = T_ARCHS[name]
+    _, n_heads, _ = ssm_dims(cfg.d_model, cfg.ssm)
+    layout = tp_layout(n_heads, cfg.ssm.head_dim, model_size)
+    assert placement.index("model") - 2 == {"heads": 0, "head_dim": 1}[layout] \
+        if layout else "model" not in placement
+
+
+def _ref_ctx(cell):
+    """The ParallelCtx the reference's prefill ``fn`` closes over."""
+    return next(c.cell_contents for c in cell.fn.__closure__
+                if type(c.cell_contents).__name__ == "ParallelCtx")
+
+
+@pytest.mark.parametrize("model_size", [1, 2, 4, 16])
+@pytest.mark.parametrize("name", NAMES)
+def test_prefill_cell_equals_reference(name, model_size):
+    """The prefill cell's ``seq_parallel`` rule (on where the heads divide
+    the model axis or the arch is MHA, and for attention-free archs), its
+    context, its args' shapes and dtypes and its input placements."""
+    from jax.sharding import AbstractMesh
+    from repro.launch import specs as ref_specs
+    shape = (4, model_size)
+    ref = ref_specs.build_prefill_cell(ARCHS[name], SHAPES["prefill_32k"],
+                                       AbstractMesh(shape, ("data", "model")))
+    cell = specs.build_cell(name, "prefill_32k", Mesh(shape, ("data", "model")))
+    ref_ctx, ctx = _ref_ctx(ref), cell.meta["ctx"]
+    assert ctx.seq_parallel == ref_ctx.seq_parallel
+    assert (ctx.dp_axes, ctx.model_axis, ctx.remat) == \
+        (ref_ctx.dp_axes, ref_ctx.model_axis, ref_ctx.remat)
+    assert ctx.compute_dtype == torch.bfloat16 and ref_ctx.compute_dtype == jnp.bfloat16
+    assert ctx.residual_spec() == tuple(ref_ctx.residual_spec())
+    assert _struct(list(cell.args)) == _struct(list(ref.args))
+    ref_ins = jax.tree.map(lambda s: tuple(s.spec), ref.in_shardings,
+                           is_leaf=lambda s: hasattr(s, "spec"))
+    assert list(cell.in_shardings) == list(ref_ins)
+    assert cell.meta["kind"] == ref.meta["kind"] == "prefill" and cell.donate == ()
+    cfg = T_ARCHS[name]
+    if name == "hymba-1.5b" and model_size > 1:     # GQA, 25 heads
+        assert not ctx.seq_parallel
+    if not cfg.n_heads or name == "whisper-large-v3":
+        assert ctx.seq_parallel

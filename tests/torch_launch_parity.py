@@ -234,15 +234,22 @@ SERVE_PAGE = 4
 
 
 def serve_config(name, n_layers):
+    """The reduced arch ``name`` at ``n_layers`` (0: as reduced), or the
+    config of a case dict (``case_config``)."""
     from repro_torch.configs import ARCHS, reduced, replace
-    cfg = reduced(ARCHS[name])
+    cfg = case_config(name) if isinstance(name, dict) else reduced(ARCHS[name])
     return replace(cfg, n_layers=n_layers) if n_layers else cfg
 
 
-def serve_rank(rank, workdir, archs):
+def serve_key(name):
+    return name["tag"] if isinstance(name, dict) else name
+
+
+def serve_rank(rank, workdir, archs, migrate=True):
     """One rank of the 2x2 serve-step run: every arch's STEPS teacher-forced
-    steps on its shards of the reference's params and caches, and one
-    migration step on the first arch's first paged segment."""
+    steps on its shards of the reference's params and caches, and (with
+    ``migrate``) one migration step on the first arch's first paged
+    segment.  ``archs``: (arch name or case dict, n_layers) pairs."""
     import torch
     from repro_torch import bridge
     from repro_torch.configs.base import ShapeConfig
@@ -262,8 +269,8 @@ def serve_rank(rank, workdir, archs):
     def local(a, spec):
         return torch.from_numpy(np.ascontiguousarray(local_block(a, spec, mesh)))
 
-    for ai, (name, n_layers) in enumerate(archs):
-        cfg = serve_config(name, n_layers)
+    for ai, (arch, n_layers) in enumerate(archs):
+        cfg, name = serve_config(arch, n_layers), serve_key(arch)
         fn, _, _ = SS.make_serve_step(cfg, shape, mesh, plan=plan,
                                       compute_dtype=torch.float32)
         _, cspecs, _, sspecs, _ = SS.decode_struct(cfg, shape, mesh, plan,
@@ -274,7 +281,7 @@ def serve_rank(rank, workdir, archs):
             mesh, device="cpu")
         caches = [{k: local(v, cs[k]) for k, v in c.items()}
                   for c, cs in zip(unflatten(ref, f"{name}/caches0"), cspecs)]
-        if ai == 0:
+        if ai == 0 and migrate:
             seg = next(i for i, c in enumerate(caches) if "pool_k" in c)
             migrate = SS.make_migrate_step(mesh, plan)
             pk, pv = migrate(caches[seg]["pool_k"].clone(),
@@ -335,3 +342,249 @@ def paged_rank(rank, workdir):
         for k in keys:
             out[f"{kv_dtype}/{k}"] = cache[k].numpy()
     np.savez(rank_out(workdir, rank), **out)
+
+
+# --------------------------------------------------------------------------
+# The sharded prefill (``test_torch_launch_prefill*.py``)
+# --------------------------------------------------------------------------
+
+def case_config(case, package="repro_torch"):
+    """A case's config in ``package``: the reduced arch, then the case's
+    replacements (``ssm`` and ``moe`` given as dicts of their fields)."""
+    import dataclasses
+    import importlib
+    configs = importlib.import_module(f"{package}.configs")
+    cfg = configs.reduced(configs.ARCHS[case["arch"]])
+    kw = dict(case.get("cfg", {}))
+    for sub in ("ssm", "moe"):
+        if sub in kw:
+            kw[sub] = dataclasses.replace(getattr(cfg, sub), **kw[sub])
+    return dataclasses.replace(cfg, **kw)
+
+
+def seq_parallel_rule(cfg, mp):
+    """``build_prefill_cell``'s rule (both packages)."""
+    if not cfg.n_heads:
+        return True
+    return cfg.n_heads % mp == 0 or cfg.n_heads == cfg.n_kv_heads
+
+
+def prefill_inputs(cases, seed=0):
+    """Per case: tokens (B, S) and, for an arch that reads one, a frontend
+    (B, N, d), numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case in cases:
+        cfg = case_config(case)
+        tag = case["tag"]
+        out[f"{tag}/tokens"] = rng.integers(
+            0, cfg.vocab, size=(case["batch"], case["seq"])).astype(np.int32)
+        if cfg.n_frontend_tokens:
+            out[f"{tag}/frontend"] = rng.standard_normal(
+                (case["batch"], cfg.n_frontend_tokens, cfg.d_model)
+            ).astype(np.float32)
+    return out
+
+
+# the reference's side: its sharded prefill_logits under jit, f32, with
+# params, tokens and frontend placed as its prefill cell places them
+PREFILL_REFERENCE = """
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.models import transformer as T
+from torch_launch_parity import case_config, seq_parallel_rule
+
+inp = dict(np.load(IN))
+out = {}
+for case in CASES:
+    tag = case["tag"]
+    cfg = case_config(case, "repro")
+    dp, mp = case["mesh"]
+    mesh = Mesh(np.array(jax.devices()[:dp * mp]).reshape(dp, mp),
+                ("data", "model"))
+    sp = case.get("sp")
+    ctx = T.ParallelCtx(mesh=mesh, dp_axes=("data",), remat=False,
+                        compute_dtype=jnp.float32,
+                        seq_parallel=seq_parallel_rule(cfg, mp) if sp is None else sp)
+    params = T.init_params(jax.random.PRNGKey(case.get("seed", 0)), cfg)
+    if cfg.xattn_every:          # open the gates of the cross path
+        params["segments"] = [dict(s, xgate=jnp.full_like(s["xgate"], 0.5))
+                              if "xgate" in s else s for s in params["segments"]]
+    out.update(flatten(jax.tree.map(np.asarray, params), f"{tag}/params"))
+    place = lambda spec: NamedSharding(mesh, spec)
+    specs = T.param_pspecs(params, cfg, model_size=mp)
+    params = jax.device_put(params, jax.tree.map(
+        place, specs, is_leaf=lambda s: isinstance(s, P)))
+    args = [params, jax.device_put(inp[f"{tag}/tokens"], place(P("data", None)))]
+    if f"{tag}/frontend" in inp:
+        args.append(jax.device_put(inp[f"{tag}/frontend"],
+                                   place(P("data", None, None))))
+    fn = jax.jit(lambda p, t, f=None: T.prefill_logits(p, t, cfg, ctx, frontend=f))
+    out[f"{tag}/logits"] = np.asarray(fn(*args))
+np.savez(OUT, **out)
+"""
+
+
+def run_prefill_reference(cases, workdir: Path) -> dict:
+    n = max(dp * mp for dp, mp in (c["mesh"] for c in cases))
+    return run_reference(f"CASES = {cases!r}\n" + PREFILL_REFERENCE, n, workdir)
+
+
+def prefill_rank(rank, workdir, cases, mesh_shape):
+    """One rank of the port's sharded prefill, for each case on this mesh:
+    the prefill cell's ``fn`` (the ``seq_parallel`` rule) or, where the
+    case sets ``sp``, ``prefill_logits`` with that setting; every attention
+    through the flash kernel's op (its plain version on the CPU)."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.ops import flash_attention_op
+    from repro_torch.launch.mesh import local_block, make_local_mesh
+    from repro_torch.launch.specs import build_prefill_cell
+    from repro_torch.models import transformer as T
+
+    workdir = Path(workdir)
+    ref = dict(np.load(workdir / "reference_out.npz"))
+    inp = dict(np.load(workdir / "inputs.npz"))
+    mesh = make_local_mesh(*mesh_shape)
+
+    def local(a, spec):
+        return torch.from_numpy(np.ascontiguousarray(local_block(a, spec, mesh)))
+
+    out = {}
+    for case in cases:
+        if tuple(case["mesh"]) != tuple(mesh_shape):
+            continue
+        tag, cfg = case["tag"], case_config(case)
+        params_np = unflatten(ref, f"{tag}/params")
+        params = bridge.shard_to_torch(
+            params_np, T.param_pspecs(params_np, cfg, mesh.shape["model"]),
+            mesh, device="cpu")
+        if case.get("sp") is None:
+            shape = ShapeConfig("parity", seq_len=case["seq"],
+                                global_batch=case["batch"], kind="prefill")
+            fn = build_prefill_cell(cfg, shape, mesh,
+                                    compute_dtype=torch.float32).fn
+        else:
+            ctx = T.ParallelCtx(mesh=mesh, remat=False, compute_dtype=torch.float32,
+                                seq_parallel=case["sp"])
+
+            def fn(p, t, f=None, cfg=cfg, ctx=ctx):
+                return T.prefill_logits(p, t, cfg, ctx, frontend=f,
+                                        attention=flash_attention_op)
+        args = [params, local(inp[f"{tag}/tokens"], ("data", None)).long()]
+        if f"{tag}/frontend" in inp:
+            args.append(local(inp[f"{tag}/frontend"], ("data", None, None)))
+        out[f"{tag}/logits"] = fn(*args).numpy()
+    np.savez(rank_out(workdir, rank), **out)
+
+
+def run_prefill(cases, workdir: Path):
+    """The reference's logits and the port's, put back together: {tag:
+    (reference (B, V), port (B, V))}.  One spawn of ranks per mesh."""
+    np.savez(workdir / "inputs.npz", **prefill_inputs(cases))
+    ref = run_prefill_reference(cases, workdir)
+    got = {}
+    for mesh_shape in sorted({tuple(c["mesh"]) for c in cases}):
+        world = mesh_shape[0] * mesh_shape[1]
+        spawn_ranks(prefill_rank, world, str(workdir), cases, mesh_shape)
+        port = [dict(np.load(rank_out(workdir, r))) for r in range(world)]
+        for case in cases:
+            if tuple(case["mesh"]) == mesh_shape:
+                tag = case["tag"]
+                want = ref[f"{tag}/logits"]
+                got[tag] = (want, assemble([p[f"{tag}/logits"] for p in port],
+                                           ("data", None), mesh_shape, want.shape))
+    return got
+
+
+# the reference's side of the serve-kinds runs: its make_serve_step on a 2x2
+# Auto mesh, f32, from numpy-seeded caches; the step returns only the
+# argmax, so the logits it read are captured from ``T.mask_vocab_pad``
+SERVE_KINDS_REFERENCE = """
+from repro.configs.base import ShapeConfig
+from repro.launch import serve_step as SS
+from repro.models import transformer as T
+from torch_launch_parity import case_config
+
+inp = dict(np.load(IN))
+mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+out = {}
+captured = {}
+mask = T.mask_vocab_pad
+def capture(logits, cfg):
+    captured["logits"] = mask(logits, cfg)
+    return captured["logits"]
+T.mask_vocab_pad = capture
+
+for ai, case in enumerate(CASES):
+    name, cfg = case["tag"], case_config(case, "repro")
+    shape = ShapeConfig(**SHAPE)
+    plan = SS.DecodePlan(batch_axes=("data",), kv_axes=("model",), page=PAGE)
+    fn, plan, ctx = SS.make_serve_step(cfg, shape, mesh, plan=plan,
+                                       compute_dtype=jnp.float32)
+    structs = SS.decode_struct(cfg, shape, mesh, plan, dtype=jnp.float32)[0]
+    params = T.init_params(jax.random.PRNGKey(ai), cfg)
+    if cfg.xattn_every:          # open the gates of the cross path
+        params["segments"] = [dict(s, xgate=jnp.full_like(s["xgate"], 0.5))
+                              if "xgate" in s else s for s in params["segments"]]
+    params = jax.tree.map(np.asarray, params)
+    rng = np.random.default_rng(1 + ai)
+    caches = [{k: rng.normal(size=s.shape).astype(np.float32)
+               for k, s in c.items()} for c in structs]
+    out.update(flatten(params, f"{name}/params"))
+    out.update(flatten(caches, f"{name}/caches0"))
+
+    def step_fn(params, caches, step):
+        toks, caches = fn(params, caches, step)
+        return toks, caches, captured["logits"]
+    step_fn = jax.jit(step_fn)
+    c = caches
+    for t in range(STEPS):
+        step = {"tokens": inp[f"{name}/tokens"][t],
+                "block_table": inp["block_table"],
+                **{k: inp[f"step{t}/{k}"] for k in
+                   ("app_slot", "app_off", "app_rank", "lengths")}}
+        toks, c, logits = step_fn(params, c, step)
+        out[f"{name}/tokens/{t}"] = np.asarray(toks)
+        out[f"{name}/logits/{t}"] = np.asarray(logits)
+    out.update(flatten(jax.tree.map(np.asarray, c), f"{name}/caches"))
+np.savez(OUT, **out)
+"""
+
+SERVE_MESH = (2, 2)
+
+
+def serve_geometry():
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve_step as SS
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(SERVE_MESH, ("data", "model"))
+    plan = SS.DecodePlan(batch_axes=("data",), kv_axes=("model",),
+                         page=SERVE_PAGE)
+    return mesh, plan, ShapeConfig(**SERVE_SHAPE)
+
+
+def run_serve_kinds(cases, workdir: Path):
+    """The reference's serve step and the port's on 4 gloo ranks (2x2) for
+    each case: STEPS teacher-forced steps from the same params and caches.
+    Returns (reference arrays, per-rank port arrays)."""
+    from repro_torch.launch import serve_step as SS
+    mesh, plan, shape = serve_geometry()
+    geo = SS.cache_geometry(case_config(cases[0]), shape, mesh, plan)
+    bt, steps = step_inputs(LENGTHS0, STEPS, dp=geo["dp"], kvr=geo["kvr"],
+                            page=plan.page, p_loc=geo["p_loc"],
+                            slots=geo["slots_loc"])
+    rng = np.random.default_rng(0)
+    inputs = {"block_table": bt}
+    for t, st in enumerate(steps):
+        inputs.update({f"step{t}/{k}": v for k, v in st.items()})
+    for case in cases:
+        inputs[f"{case['tag']}/tokens"] = rng.integers(
+            0, case_config(case).vocab,
+            size=(STEPS, shape.global_batch)).astype(np.int32)
+    np.savez(workdir / "inputs.npz", **inputs)
+    body = (f"CASES = {cases!r}\nSHAPE = {SERVE_SHAPE!r}\nPAGE = {SERVE_PAGE}\n"
+            f"STEPS = {STEPS}\n" + SERVE_KINDS_REFERENCE)
+    ref = run_reference(body, 4, workdir)
+    spawn_ranks(serve_rank, 4, str(workdir), [(c, 0) for c in cases], False)
+    return ref, [dict(np.load(rank_out(workdir, r))) for r in range(4)]
