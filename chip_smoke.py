@@ -49,7 +49,15 @@ frames), f32, on one rank (NCCL) held against the unsharded
 ``models.decode`` adds to a decode token, which the reference's serve step
 does not), and on four gloo ranks sharing the card held against one rank;
 then every shape the phase gave a kernel is held against the kernel's plain
-version on fresh inputs.  Each main path runs with every kernel's launch count
+version on fresh inputs.  Phase 14 trains sharded (``make_train_step`` on a
+rank mesh: ZeRO-1, the vocab-sharded loss, remat with the collectives
+saved): full-width mamba2-2.7b (4 of 64 layers, each rank's SSD heads on
+the kernel under autograd) in f32 on one rank (NCCL) held against one
+device, on four gloo ranks sharing the card (2x2) held against one rank,
+then in bf16 for timing, and one step on 2x1 and on 1x2 held against one
+rank; the 2-stage GPipe step of full-width granite-3-8b (4 of 40 layers)
+over two pod ranks held against one device's step; then every shape the
+phase gave the SSD kernel against its plain version.  Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -2045,21 +2053,20 @@ def partial_case(shape, kvr, dtype, pool, seed=21, timed=False):
     return dict(max_abs_err=err, bound_ms=bms, bound_by=by, **times)
 
 
-def _gloo_rank(rank, port):
-    """A spawned rank's setup: gloo over ``SHARD_MESH`` on the shared card,
-    its mesh with each collective timed (host wall inside it, calls), and
-    counts of the kernels' plain versions run on CUDA tensors.  Returns
-    (mesh, [ms], [calls], {kernel: plain calls})."""
+def _gloo_init(rank, port, world, init=None):
+    """A spawned rank's process group: gloo over ``world`` ranks on the
+    shared card (met at ``port``, or at the ``init`` method), TF32 off, and
+    counts of the kernels' plain versions run on CUDA tensors (returned,
+    {kernel: calls})."""
     import datetime
     import torch.distributed as dist
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.launch import mesh as mesh_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=SHARD_MESH[0] * SHARD_MESH[1],
+    dist.init_process_group("gloo", init_method=init or f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world,
                             timeout=datetime.timedelta(seconds=SHARD_SECONDS))
     plain_calls = {"paged_partials": 0, "flash": 0, "ssd": 0}
     for key, mod, fn in (("paged_partials", pa, "paged_attention_partials_plain"),
@@ -2068,20 +2075,17 @@ def _gloo_rank(rank, port):
             plain_calls[_key] += int(x.is_cuda)
             return _fn(x, *a, **kw)
         setattr(mod, fn, counted)
-    mesh = mesh_lib.make_local_mesh(*SHARD_MESH)
-    # host wall spent inside the collectives
-    coll_ms, coll_calls = [0.0], [0]
-    for op in ("all_reduce", "all_gather", "ring_shift"):
-        fn = getattr(mesh, op)
+    return plain_calls
 
-        def timed(*a, _fn=fn, **kw):
-            t0 = time.perf_counter()
-            out = _fn(*a, **kw)
-            coll_ms[0] += 1e3 * (time.perf_counter() - t0)
-            coll_calls[0] += 1
-            return out
-        setattr(mesh, op, timed)
-    return mesh, coll_ms, coll_calls, plain_calls
+
+def _gloo_rank(rank, port):
+    """A spawned rank's setup: gloo over ``SHARD_MESH`` on the shared card,
+    its mesh (``Mesh.stats`` counts each transport and the host wall inside
+    it), and counts of the kernels' plain versions run on CUDA tensors.
+    Returns (mesh, {kernel: plain calls})."""
+    from repro_torch.launch import mesh as mesh_lib
+    plain_calls = _gloo_init(rank, port, SHARD_MESH[0] * SHARD_MESH[1])
+    return mesh_lib.make_local_mesh(*SHARD_MESH), plain_calls
 
 
 def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_dir):
@@ -2093,7 +2097,7 @@ def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve_step as SS
-    mesh, coll_ms, coll_calls, plain_calls = _gloo_rank(rank, port)
+    mesh, plain_calls = _gloo_rank(rank, port)
     cfg = replace(ARCHS[name], n_layers=n_layers)
     params = shard_params(cfg, seed, mesh)
     d = mesh.index("data")
@@ -2103,7 +2107,7 @@ def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_
 
     def check(t, toks, logits):
         nonlocal worst, flips
-        per_step_coll.append(coll_ms[0])
+        per_step_coll.append(mesh.stats_total()[1])
         # the real vocab: the padded tail is -1e30 in both
         ref = ref_logits[t, d * b_loc:(d + 1) * b_loc, :cfg.vocab]
         logits = logits[:, :cfg.vocab]
@@ -2116,7 +2120,7 @@ def _shard_rank(rank, port, name, n_layers, seed, prompts, fed, ref_logits, out_
     _, caches, walls = serve_sharded(cfg, mesh, params, prompts, len(fed), fed=fed,
                                      on_step=check)
     launches = pa.paged_attention_partials.launches
-    calls_per_step = coll_calls[0] / len(fed)
+    calls_per_step = mesh.stats_total()[0] / len(fed)
     coll = np.diff([0.0] + per_step_coll)
     # one migration step on the first paged segment: payloads go one hop
     # along the model ring; the destination slots must hold exactly what
@@ -2201,28 +2205,27 @@ def against_decode(cfg, params, fed, steps_logits, toks, cross=None):
     return worst, mism
 
 
-def run_ranks(fn, args, name):
-    """``fn(rank, port, *args, out_dir)`` on the four ranks of ``SHARD_MESH``
-    (spawned; killed past ``SHARD_SECONDS``): the JSON each wrote to
+def run_ranks(fn, args, name, world=SHARD_MESH[0] * SHARD_MESH[1]):
+    """``fn(rank, port, *args, out_dir)`` on ``world`` ranks (spawned;
+    killed past ``SHARD_SECONDS``): the JSON each wrote to
     ``out_dir/rank<r>.json``."""
     import tempfile
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as out_dir:
         procs = mp.start_processes(fn, args=(_free_port(),) + tuple(args) + (out_dir,),
-                                   nprocs=SHARD_MESH[0] * SHARD_MESH[1], join=False,
-                                   start_method="spawn")
+                                   nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + SHARD_SECONDS
         try:
             while not procs.join(timeout=max(deadline - time.monotonic(), 1.0)):
                 if time.monotonic() > deadline:
-                    fail(f"{name}: the four ranks outlasted {SHARD_SECONDS} s")
+                    fail(f"{name}: the {world} ranks outlasted {SHARD_SECONDS} s")
         finally:
             for p in procs.processes:
                 if p.is_alive():
                     p.kill()
                     p.join()
         return [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
-                for r in range(SHARD_MESH[0] * SHARD_MESH[1])]
+                for r in range(world)]
 
 
 def shard_arch(name, n_layers, seed):
@@ -2424,14 +2427,15 @@ def shapes_seen():
         ops._flash, ops._ssd, SS.paged_attention_partials = flash, ssd, partials
 
 
-def hold_seen(seen):
-    """Every shape ``shapes_seen`` noted on phase 13's path, on fresh seeded
+def hold_seen(seen, phase, need):
+    """Every shape ``shapes_seen`` noted on a phase's path, on fresh seeded
     inputs: the flash and SSD kernels against their plain versions, the
     partial entry's partials against its plain version and combined over
-    the ranks against one unsplit call (``partial_case``)."""
-    for key, keys in seen.items():
-        if not keys:
-            fail(f"phase 13: no {key} call was seen at the model's call sites")
+    the ranks against one unsplit call (``partial_case``).  Fails if a
+    kernel in ``need`` was seen at no shape."""
+    for key in need:
+        if not seen[key]:
+            fail(f"phase {phase}: no {key} call was seen at the model's call sites")
     for i, (hq, hkv, d, sq, sk, causal, window, dt) in enumerate(sorted(seen["flash"])):
         flash_case(f"flash Hq{hq} Hkv{hkv} D{d} Sq{sq} Sk{sk} "
                    f"{'causal' if causal else 'non-causal'} window{window} {dt}",
@@ -2442,7 +2446,7 @@ def hold_seen(seen):
                  chunk, getattr(torch, dt), seed=80 + i, timed=False)
     for b, hq, hkv, d, p_loc, kvr, qd, pool in sorted(seen["paged_partials"]):
         if pool not in ("int8", qd):
-            fail(f"phase 13: no partial case builds a {pool} pool under {qd} q")
+            fail(f"phase {phase}: no partial case builds a {pool} pool under {qd} q")
         n_pages = p_loc * kvr
         partial_case((b, hq, hkv, d, n_pages * SHARD_PAGE, n_pages), kvr,
                      getattr(torch, qd), pool)
@@ -2460,7 +2464,8 @@ def _kinds_rank(rank, port, name, over, seed, tokens, fe, ref_prefill, prompts, 
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.mesh import local_block
-    mesh, coll_ms, coll_calls, plain_calls = _gloo_rank(rank, port)
+    mesh, plain_calls = _gloo_rank(rank, port)
+    ms_calls = lambda: mesh.stats_total()[::-1]  # noqa: E731
     with shapes_seen() as seen:
         cfg = replace(ARCHS[name], **over)
         params = shard_params(cfg, seed, mesh)
@@ -2473,9 +2478,9 @@ def _kinds_rank(rank, port, name, over, seed, tokens, fe, ref_prefill, prompts, 
         fe_l = None if fe is None else local_block(fe, ("data", None, None), mesh)
         cell = prefill_cell(cfg, mesh)
         dist.barrier()
-        calls0 = coll_calls[0]
+        calls0 = ms_calls()[1]
         got = cell.fn(params, toks_l, fe_l)
-        prefill_calls = coll_calls[0] - calls0
+        prefill_calls = ms_calls()[1] - calls0
         prefill_err = rel_err(got, rows(ref_prefill, KINDS_PREFILL[0] // SHARD_MESH[0]),
                               cfg.vocab)
         with off_path():           # a second call, past the first one's warm-up
@@ -2486,7 +2491,7 @@ def _kinds_rank(rank, port, name, over, seed, tokens, fe, ref_prefill, prompts, 
 
         def check(t, toks, logits):
             nonlocal worst, flips
-            per_step.append((coll_ms[0], coll_calls[0]))
+            per_step.append(ms_calls())
             ref = rows(ref_logits[t], b_loc)[:, :cfg.vocab]
             worst = max(worst, rel_err(logits, ref, cfg.vocab))
             top2 = ref.topk(2, dim=-1).values
@@ -2494,7 +2499,7 @@ def _kinds_rank(rank, port, name, over, seed, tokens, fe, ref_prefill, prompts, 
             flips += int(((logits[:, :cfg.vocab].argmax(-1) != ref.argmax(-1)) & sure).sum())
 
         dist.barrier()
-        base = (coll_ms[0], coll_calls[0])
+        base = ms_calls()
         _, _, walls = serve_sharded(cfg, mesh, params, prompts, len(fed), fed=fed,
                                     on_step=check, cross=cross)
         launches = [w.launches for w in wrappers]
@@ -2611,7 +2616,512 @@ def phase_kinds():
         for name, over, seed in KINDS_ARCHS:
             kinds_arch(name, over, seed, seen)
     with off_path():
-        hold_seen(seen)
+        hold_seen(seen, 13, ("flash", "ssd", "paged_partials"))
+
+
+# --------------------------------------------------------------------------
+# Phase 14: sharded training
+# --------------------------------------------------------------------------
+
+# Full-width mamba2-2.7b at 4 of 64 layers (its SSD heads on the kernel
+# under autograd, 40 a rank at model 2), f32 with TF32 off for the checks:
+# SHTRAIN_STEPS steps of SHTRAIN_MICRO microbatches of SHTRAIN_BATCH / 2
+# rows of SHTRAIN_SEQ tokens, ZeRO-1, remat with the collectives saved
+SHTRAIN_ARCH = ("mamba2-2.7b", 4, 14)       # name, layers, seed
+SHTRAIN_SEQ = 1024
+SHTRAIN_BATCH, SHTRAIN_MICRO = 4, 2
+SHTRAIN_STEPS = 3
+SHTRAIN_MESH = (2, 2)                        # (b): data x model ranks on the card
+SHTRAIN_WITNESS = ((2, 1), (1, 2))           # (e): data only, model only
+SHTRAIN_REL = 1e-5                           # loss and grad norm, relative
+SHTRAIN_MOMENTS = TOL[torch.float32]         # AdamW's moments (the first after the
+                                             # first and the last step, the second's
+                                             # root after the last), of each leaf's
+                                             # largest entry: f32's limit
+SHTRAIN_ABS = 1e-4                           # params, absolute
+# AdamW's step is g / (|g| + 1e-8) at the first update, so a gradient
+# element near 1e-8 moves by up to ~lr on a rounding gap of its own size:
+# at phase 11's 3e-4, (b)'s params were 1.597e-04 from (a)'s after one step
+# while their losses and grad norms agreed to 3.2e-07 (PERF.md, phase 14).
+# The checks run at a tenth of that rate.  There a step moves an entry by
+# at most ~lr, so the parameter limit fails only where most of an entry's
+# steps were reversed; the moments hold the gradients of every step
+SHTRAIN_LR = 3e-5
+# (c) GPipe: full-width granite-3-8b at 4 of 40 layers (2 a stage), bf16,
+# PP_MICRO microbatches of one row of PP_SEQ tokens
+PP_ARCH = ("granite-3-8b", 4, 15)
+PP_MICRO, PP_SEQ = 4, 1024
+PP_REL = 2e-2
+
+
+def shtrain_config(dtype):
+    from repro_torch import optim
+    from repro_torch.train import TrainConfig
+    return TrainConfig(microbatches=SHTRAIN_MICRO, zero1=True, compute_dtype=dtype,
+                       adamw=optim.AdamWConfig(lr=SHTRAIN_LR, warmup_steps=0,
+                                               total_steps=60))
+
+
+def shtrain_data(cfg, seed):
+    """(steps, n_micro, mb, S) tokens and labels, numpy-seeded; labels of -1
+    in part of the microbatches' first row (data rank 0's at 2x2)."""
+    rng = np.random.default_rng(seed)
+    shape = (SHTRAIN_STEPS, SHTRAIN_MICRO, SHTRAIN_BATCH // SHTRAIN_MICRO, SHTRAIN_SEQ)
+    toks = rng.integers(0, cfg.vocab, shape)
+    labels = rng.integers(0, cfg.vocab, shape)
+    labels[:, :, 0, 100:400] = -1
+    return toks, labels
+
+
+def sharded_state(cfg, seed, mesh, ctx, tcfg):
+    """The seed's f32 params and a fresh AdamW state: whole without a mesh,
+    else this rank's shards and ZeRO-1 blocks (the full tree is made on the
+    card, cut and freed).  Returns (params, state, (param placements,
+    moment placements), batch placement)."""
+    from repro_torch import bridge, optim
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_shardings
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, device="cuda")
+    if mesh is None:
+        return params, optim.init(params), (None, None), (None, None, None)
+    (pspecs, ospecs, batch, _), _ = make_shardings(cfg, ctx, tcfg, params)
+    params = bridge.shard_to_torch(params, pspecs, mesh, device="cuda")
+    torch.cuda.empty_cache()
+    return params, zero_state(cfg, ospecs.mu, mesh), (pspecs, ospecs.mu), batch
+
+
+def zero_state(cfg, moment_specs, mesh):
+    """A fresh AdamW state of this rank's blocks under ``moment_specs``."""
+    from repro_torch import bridge, optim
+    from repro_torch.launch.mesh import local_block
+    from repro_torch.models import transformer as T
+    meta = T.init_params(cfg, generator=None, device="meta")
+    zeros = lambda sp, a: torch.zeros(local_block(a, sp, mesh).shape, device="cuda")
+    return optim.AdamWState(torch.zeros((), dtype=torch.int32, device="cuda"),
+                            bridge.tree_map_specs(zeros, moment_specs, meta),
+                            bridge.tree_map_specs(zeros, moment_specs, meta))
+
+
+def shtrain_run(cfg, mesh, seed, data, dtype, steps=SHTRAIN_STEPS):
+    """``steps`` steps of ``make_train_step`` from the seed's state on
+    ``mesh`` (None: one device, the unsharded step): {losses, norms, walls
+    (s), coll (per step: forward calls, backward calls, host ms inside
+    them), ssd (launches), first ([params leaves, first-moment leaves] after
+    the first step), last ([first-moment, second-moment leaves] after the
+    last), params (after the last), specs (their placements)}."""
+    from repro_torch.bridge import tree_flatten
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import local_block
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+    tcfg = shtrain_config(dtype)
+    ctx = T.ParallelCtx(mesh=mesh, remat=True, compute_dtype=dtype,
+                        save_collectives=mesh is not None)
+    params, state, specs, batch = sharded_state(cfg, seed, mesh, ctx, tcfg)
+    step = make_train_step(cfg, ctx, tcfg)
+    out = dict(losses=[], norms=[], walls=[], coll=[], specs=specs)
+    ssd0 = ssd.ssd_scan.launches
+    for t in range(steps):
+        toks, labels = (torch.as_tensor(local_block(a[t], batch, mesh) if mesh else a[t],
+                                        device="cuda") for a in data)
+        before = [mesh.stats_total(d) for d in ("forward", "backward")] if mesh else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, toks, labels)
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        if t == 0:
+            out["first"] = [[a.clone() for a in tree_flatten(tree)[0]]
+                            for tree in (params, state.mu)]
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        if mesh:
+            (fc, fms), (bc, bms) = [mesh.stats_total(d) for d in ("forward", "backward")]
+            out["coll"].append((fc - before[0][0], bc - before[1][0],
+                                fms - before[0][1] + bms - before[1][1]))
+    out["ssd"] = ssd.ssd_scan.launches - ssd0
+    out["params"] = params
+    out["last"] = [tree_flatten(tree)[0] for tree in (state.mu, state.nu)]
+    return out
+
+
+def as_ref(run):
+    """What a run is held against: its losses, norms and leaves."""
+    from repro_torch.bridge import tree_flatten
+    return dict(losses=run["losses"], norms=run["norms"], first=run["first"],
+                last=run["last"], params=tree_flatten(run["params"])[0])
+
+
+def params_gap(a, b):
+    """The largest |a - b| over two param trees."""
+    from repro_torch.bridge import tree_flatten
+    return max(max_err(x, y) for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+
+def shtrain_gaps(a, b):
+    """(the largest relative gap of the losses and grad norms of two runs,
+    over ``a``'s steps)."""
+    return max(abs(x - y) / abs(y) for k in ("losses", "norms")
+               for x, y in zip(a[k], b[k]))
+
+
+def leaf_gaps(mine, theirs, specs, mesh, names, *, scaled, root=False):
+    """[(the largest |mine - theirs| of a leaf, of their square roots where
+    ``root``, over the leaf's largest |theirs| where ``scaled``; its name)],
+    a one-rank ``theirs`` cut to this rank's blocks under ``specs``."""
+    from repro_torch.launch.mesh import local_block
+    out = []
+    for got, want, sp, name in zip(mine, theirs, specs, names):
+        want = local_block(want, sp, mesh) if mesh else want
+        if root:
+            got, want = got.sqrt(), want.sqrt()
+        scale = max(float(want.abs().max()), 1e-30) if scaled else 1.0
+        out.append((max_err(got, want) / scale, name))
+    return out
+
+
+def run_gaps(run, ref, mesh=None):
+    """``run`` against a one-rank ``ref`` (``as_ref``): {params1, params: the
+    largest param gap after the first and the last step; moments: (the
+    largest moment gap of its leaf's largest entry, where); a_log: the
+    first moment's after the first step on the ``A_log`` leaves}.  A
+    one-step ``run`` is held after its step only."""
+    from repro_torch.bridge import is_spec, tree_flatten
+    names = ["/".join(map(str, p)) for p in _paths(run["params"])]
+    pspecs, mspecs = [tree_flatten(sp, is_leaf=is_spec)[0] if mesh else [None] * len(names)
+                      for sp in run["specs"]]
+    first = leaf_gaps(run["first"][1], ref["first"][1], mspecs, mesh, names, scaled=True)
+    out = dict(params1=max(leaf_gaps(run["first"][0], ref["first"][0], pspecs, mesh,
+                                     names, scaled=False))[0],
+               a_log=max(g for g, n in first if n.endswith("A_log")),
+               moments=max((g, f"mu after step 1: {n}") for g, n in first))
+    if len(run["losses"]) == len(ref["losses"]):
+        for tag, i, root in (("mu", 0, False), ("sqrt(nu)", 1, True)):
+            worst = max(leaf_gaps(run["last"][i], ref["last"][i], mspecs, mesh, names,
+                                  scaled=True, root=root))
+            out["moments"] = max(out["moments"], (worst[0], f"{tag} after step "
+                                                  f"{len(run['losses'])}: {worst[1]}"))
+        out["params"] = max(leaf_gaps(tree_flatten(run["params"])[0], ref["params"],
+                                      pspecs, mesh, names, scaled=False))[0]
+    return out
+
+
+def shtrain_held(loss_gap, gaps):
+    return (loss_gap <= SHTRAIN_REL and gaps["moments"][0] <= SHTRAIN_MOMENTS
+            and max(gaps["params1"], gaps.get("params", 0.0)) <= SHTRAIN_ABS)
+
+
+def gaps_text(loss_gap, gaps):
+    out = (f"loss/norm gap {loss_gap:.3e} (limit {SHTRAIN_REL}), moments within "
+           f"{gaps['moments'][0]:.3e} of their leaf's largest ({gaps['moments'][1]}; limit "
+           f"{SHTRAIN_MOMENTS}; A_log's first moment {gaps['a_log']:.3e}), params within "
+           f"{gaps['params1']:.3e} ({gaps['params1'] / SHTRAIN_LR:.2f} lr) after step 1")
+    if "params" in gaps:
+        out += (f" and {gaps['params']:.3e} ({gaps['params'] / SHTRAIN_LR:.2f} lr) after "
+                f"step {SHTRAIN_STEPS}")
+    return out + f" (limit {SHTRAIN_ABS})"
+
+
+@contextlib.contextmanager
+def ssd_event_times():
+    """CUDA events around each SSD kernel launch and each backward's plain
+    recompute (``SSDScan.backward``: ``ssd_chunked`` and its gradient):
+    yields {"kernel": [...], "recompute": [...]} of event pairs."""
+    from repro_torch.kernels import ssd_scan as ssd
+    pairs = {"kernel": [], "recompute": []}
+    launch, backward = ssd._launch, ssd.SSDScan.__dict__["backward"]
+
+    def timed(key, fn):
+        def run(*a):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            pairs[key].append(ev)
+            return out
+        return run
+    ssd._launch = timed("kernel", launch)
+    ssd.SSDScan.backward = staticmethod(timed("recompute", backward.__func__))
+    try:
+        yield pairs
+    finally:
+        ssd._launch, ssd.SSDScan.backward = launch, backward
+
+
+def events_ms(pairs):
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def _shtrain_rank(rank, port, name, n_layers, seed, data, ref, out_dir):
+    """(b) and (d) on one of the 2x2 gloo ranks sharing the card: the f32
+    steps held against (a)'s (``ref``, its leaves passed over CUDA IPC),
+    then the bf16 steps, timed.  Also returns the shapes the rank gave the
+    kernels (``shapes_seen``)."""
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.launch.mesh import HOST_STAGED, make_local_mesh
+    plain_calls = _gloo_init(rank, port, SHTRAIN_MESH[0] * SHTRAIN_MESH[1])
+    mesh = make_local_mesh(*SHTRAIN_MESH)
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    with shapes_seen() as seen:
+        f32 = shtrain_run(cfg, mesh, seed, data, torch.float32)
+        peak = torch.cuda.max_memory_allocated()
+        gap, gaps = shtrain_gaps(f32, ref), run_gaps(f32, ref, mesh)
+        del f32["params"], f32["first"], f32["last"]
+        torch.cuda.empty_cache()
+        bf16 = shtrain_run(cfg, mesh, seed, data, torch.bfloat16)
+        del bf16["params"], bf16["first"], bf16["last"]
+    res = dict(rank=rank, gap=gap, gaps=gaps, peak_gb=peak / 1e9,
+               losses=f32["losses"], walls=f32["walls"], coll=f32["coll"],
+               bf16_walls=bf16["walls"], bf16_coll=bf16["coll"],
+               ssd=f32["ssd"] + bf16["ssd"], plain_cuda_calls=plain_calls,
+               backend=mesh.backend, staged=sorted(HOST_STAGED),
+               shapes={k: sorted(v) for k, v in seen.items()})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _witness_rank(rank, port, name, n_layers, seed, data, ref, out_dir):
+    """(e) on one of four gloo ranks sharing the card in two meshes of two,
+    ranks 0-1 at ``SHTRAIN_WITNESS[0]`` and 2-3 at ``[1]`` (each its own
+    world, met through a file in ``out_dir``): one f32 step held against
+    (a)'s first."""
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.launch.mesh import make_local_mesh
+    pair, r = divmod(rank, 2)
+    plain_calls = _gloo_init(r, port, 2, init=f"file://{out_dir}/pair{pair}")
+    mesh = make_local_mesh(*SHTRAIN_WITNESS[pair])
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    with shapes_seen() as seen:
+        run = shtrain_run(cfg, mesh, seed, data, torch.float32, steps=1)
+        gap, gaps = shtrain_gaps(run, ref), run_gaps(run, ref, mesh)
+    res = dict(rank=rank, mesh=SHTRAIN_WITNESS[pair], gap=gap, gaps=gaps, ssd=run["ssd"],
+               plain_cuda_calls=plain_calls, shapes={k: sorted(v) for k, v in seen.items()})
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pp_shape():
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig("pp", seq_len=PP_SEQ, global_batch=PP_MICRO, kind="train")
+
+
+def pp_data(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.integers(0, cfg.vocab, (PP_MICRO, 1, PP_SEQ)) for _ in range(2))
+
+
+def _pp_rank(rank, port, name, n_layers, seed, data, ref, out_dir):
+    """(c) on one of the two pod ranks: the GPipe step from the seed's
+    params, held against one device's step (``ref``: loss, grad norm); a
+    second step for its wall."""
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.launch.mesh import local_block, make_pod_mesh
+    from repro_torch.launch.pipeline import make_pp_train_step
+    from repro_torch.models import transformer as T
+    plain_calls = _gloo_init(rank, port, 2)
+    mesh = make_pod_mesh(2, 1, 1)
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    step, _, (specs, _, batch, _) = make_pp_train_step(cfg, pp_shape(), mesh,
+                                                       n_micro=PP_MICRO)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = bridge.shard_to_torch(T.init_params(cfg, generator=gen, device="cuda"),
+                                   specs, mesh, device="cuda")
+    torch.cuda.empty_cache()
+    state = zero_state(cfg, specs, mesh)
+    toks, labels = (torch.as_tensor(local_block(a, batch, mesh), device="cuda")
+                    for a in data)
+    torch.cuda.reset_peak_memory_stats()
+    walls, hops = [], []
+    for _ in range(2):
+        n0 = mesh.stats.get(("forward", "ring_shift"), [0])[0] + \
+            mesh.stats.get(("backward", "ring_shift"), [0])[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, toks, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        hops.append(mesh.stats.get(("forward", "ring_shift"), [0])[0] +
+                    mesh.stats.get(("backward", "ring_shift"), [0])[0] - n0)
+        if len(walls) == 1:
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+    res = dict(rank=rank, loss=loss, norm=norm,
+               gap=max(abs(loss - ref[0]) / abs(ref[0]), abs(norm - ref[1]) / abs(ref[1])),
+               walls=walls, hops=hops, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               plain_cuda_calls=plain_calls)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pp_reference(cfg, seed, data):
+    """One device's ``make_train_step`` with the pipeline's semantics (bf16,
+    remat, the same microbatches, ``AdamWConfig()``), two steps: (the first
+    step's loss and grad norm, the two walls in s)."""
+    from repro_torch import optim
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, make_train_step
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, device="cuda")
+    ctx = T.ParallelCtx(remat=True, compute_dtype=torch.bfloat16, loss_chunk=256)
+    step = make_train_step(cfg, ctx, TrainConfig(microbatches=PP_MICRO,
+                                                 compute_dtype=torch.bfloat16))
+    toks, labels = (torch.as_tensor(a, device="cuda") for a in data)
+    state, walls = optim.init(params), []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, toks, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+    return loss, norm, walls
+
+
+def phase_sharded_training():
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import make_local_mesh
+    name, n_layers, seed = SHTRAIN_ARCH
+    log(f"phase 14: sharded training (make_train_step on a rank mesh: ZeRO-1, remat "
+        f"with the collectives saved, the vocab-sharded loss): full-width {name} "
+        f"({n_layers} of 64 layers), f32 with TF32 off, {SHTRAIN_STEPS} steps of "
+        f"{SHTRAIN_MICRO} microbatches x {SHTRAIN_BATCH // SHTRAIN_MICRO} x "
+        f"{SHTRAIN_SEQ}; on one rank (NCCL) against one device, on 2x2 gloo ranks "
+        f"against one rank, then bf16 for timing; one step on 2x1 and 1x2; the GPipe "
+        f"step; then every shape the path gave the SSD kernel against its plain version")
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    data = shtrain_data(cfg, seed)
+    tokens = SHTRAIN_BATCH * SHTRAIN_SEQ
+    t0 = time.perf_counter()
+    with off_path():
+        one = shtrain_run(cfg, None, seed, data, torch.float32)
+        # the floor: one device against itself
+        again = shtrain_run(cfg, None, seed, data, torch.float32)
+    floor = params_gap(again["params"], one["params"])
+    del again
+    # (a) one rank, a 1x1 mesh over NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda:0"))
+    mesh = make_local_mesh(1, 1)
+    with shapes_seen() as seen:
+        with ssd_event_times() as ev32:
+            a = shtrain_run(cfg, mesh, seed, data, torch.float32)
+        gap, gaps = shtrain_gaps(a, one), run_gaps(a, as_ref(one))
+        del one
+        torch.cuda.empty_cache()
+        with ssd_event_times() as ev16:
+            a16 = shtrain_run(cfg, mesh, seed, data, torch.bfloat16)
+        del a16["params"], a16["first"], a16["last"]
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    scan = [f"{k} {events_ms(ev[k]) / SHTRAIN_STEPS:.1f} ms ({len(ev[k]) // SHTRAIN_STEPS})"
+            for ev in (ev32, ev16) for k in ("kernel", "recompute")]
+    log(f"  one device against itself: params within {floor:.3e} after "
+        f"{SHTRAIN_STEPS} steps")
+    log(f"  (a) one rank: losses {[round(x, 6) for x in a['losses']]}, grad norms "
+        f"{[round(x, 6) for x in a['norms']]}; against one device: "
+        f"{gaps_text(gap, gaps)}; step wall "
+        f"{[round(1e3 * w, 1) for w in a['walls']]} ms f32, "
+        f"{[round(1e3 * w, 1) for w in a16['walls']]} ms bf16 "
+        f"({tokens / float(np.median(a16['walls'][1:])):.0f} tokens/s); "
+        f"{a['ssd'] // SHTRAIN_STEPS} SSD launches a step; a step's SSD kernel and the "
+        f"backward's plain recompute (calls), f32: {scan[0]}, {scan[1]}; bf16: {scan[2]}, "
+        f"{scan[3]}")
+    if not shtrain_held(gap, gaps):
+        fail(f"sharded training: one rank differs from one device ({gap:.3e}, {gaps})")
+    log(f"  one device and (a): {time.perf_counter() - t0:.1f} s wall")
+    # (b) + (d) four ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    ref = as_ref(a)
+    del a
+    res = run_ranks(_shtrain_rank, (name, n_layers, seed, data, ref), name,
+                    world=SHTRAIN_MESH[0] * SHTRAIN_MESH[1])
+    gap = max(r["gap"] for r in res)
+    gaps = dict(params1=max(r["gaps"]["params1"] for r in res),
+                params=max(r["gaps"]["params"] for r in res),
+                a_log=max(r["gaps"]["a_log"] for r in res),
+                moments=max(tuple(r["gaps"]["moments"]) for r in res))
+    med = lambda xs: float(np.median(xs[1:]))  # noqa: E731
+    coll = res[0]["coll"][-1]
+    log(f"  (b) 2x2 gloo ranks on one card: against (a): {gaps_text(gap, gaps)}; step "
+        f"wall (median of steps 2-{SHTRAIN_STEPS}) "
+        f"{[round(1e3 * med(r['walls']), 1) for r in res]} ms f32 "
+        f"({tokens / max(med(r['walls']) for r in res):.0f} tokens/s); collective calls "
+        f"a step {coll[0]} forward + {coll[1]} backward (remat's recompute included), "
+        f"host wall inside them {[round(r['coll'][-1][2], 1) for r in res]} ms; peak "
+        f"allocated {[round(r['peak_gb'], 2) for r in res]} GB; SSD launches "
+        f"{[r['ssd'] for r in res]}; staged through the host on {res[0]['backend']}: "
+        f"{res[0]['staged']}")
+    log(f"  (d) the same on bf16 compute: step wall "
+        f"{[round(1e3 * med(r['bf16_walls']), 1) for r in res]} ms "
+        f"({tokens / max(med(r['bf16_walls']) for r in res):.0f} tokens/s), host wall "
+        f"in collectives {[round(r['bf16_coll'][-1][2], 1) for r in res]} ms a step")
+    if not shtrain_held(gap, gaps):
+        fail(f"sharded training: four ranks differ from one ({gap:.3e}, {gaps})")
+    log(f"  (b) and (d): {time.perf_counter() - t0:.1f} s wall")
+    # (e) the witnesses: one step on data only and on model only, two
+    # meshes of two ranks at once
+    t0 = time.perf_counter()
+    wit = run_ranks(_witness_rank, (name, n_layers, seed, data, ref), name, world=4)
+    del ref
+    torch.cuda.empty_cache()
+    for pair in (0, 1):
+        two = wit[2 * pair:2 * pair + 2]
+        wgap = max(r["gap"] for r in two)
+        wgaps = dict(params1=max(r["gaps"]["params1"] for r in two),
+                     a_log=max(r["gaps"]["a_log"] for r in two),
+                     moments=max(tuple(r["gaps"]["moments"]) for r in two))
+        shape = "x".join(map(str, two[0]["mesh"]))
+        log(f"  (e) {shape} (data x model) gloo ranks, one step, against (a)'s first: "
+            f"{gaps_text(wgap, wgaps)}; SSD launches {[r['ssd'] for r in two]}")
+        if not shtrain_held(wgap, wgaps):
+            fail(f"sharded training: {shape} ranks differ from one ({wgap:.3e}, {wgaps})")
+    log(f"  (e): {time.perf_counter() - t0:.1f} s wall")
+    for r in res + wit:
+        ssd.ssd_scan.launches += r["ssd"]
+        for key in PLAIN_CUDA_CALLS:
+            PLAIN_CUDA_CALLS[key] += r["plain_cuda_calls"].get(key, 0)
+        for key in seen:
+            seen[key].update(tuple(k) for k in r["shapes"][key])
+    if not all(r["ssd"] > 0 for r in res + wit):
+        fail("sharded training: a rank launched no SSD scan")
+    # (c) GPipe over two pod ranks
+    t0 = time.perf_counter()
+    name, n_layers, seed = PP_ARCH
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    data = pp_data(cfg, seed)
+    with off_path():
+        ref = pp_reference(cfg, seed, data)
+    torch.cuda.empty_cache()
+    res = run_ranks(_pp_rank, (name, n_layers, seed, data, ref[:2]), name, world=2)
+    gap = max(r["gap"] for r in res)
+    log(f"  (c) GPipe {name} ({n_layers} of 40 layers, 2 a stage), {PP_MICRO} "
+        f"microbatches of 1 x {PP_SEQ}, bf16, pod 2 (gloo, one card): loss "
+        f"{res[0]['loss']:.6f} grad norm {res[0]['norm']:.6f} against one device's "
+        f"{ref[0]:.6f} {ref[1]:.6f} (largest gap {gap:.3e}, limit {PP_REL}); step wall "
+        f"of the second step {[round(1e3 * r['walls'][1], 1) for r in res]} ms (one "
+        f"device {1e3 * ref[2][1]:.1f} ms, its first {1e3 * ref[2][0]:.1f}); hops a step "
+        f"{[r['hops'] for r in res]}; peak {[round(r['peak_gb'], 2) for r in res]} GB")
+    log(f"  (c): {time.perf_counter() - t0:.1f} s wall")
+    if gap > PP_REL:
+        fail(f"GPipe: the pipeline differs from one device ({gap:.3e})")
+    if any(r["hops"] != [2 * PP_MICRO + 1] * 2 for r in res):
+        fail(f"GPipe: hops {[r['hops'] for r in res]}, not {2 * PP_MICRO + 1} a step")
+    if any(any(r["plain_cuda_calls"].values()) for r in res):
+        fail("GPipe: plain versions ran on CUDA tensors")
+    with off_path():
+        hold_seen(seen, 14, ("ssd",))
 
 
 def _leaves(tree):
@@ -2629,7 +3139,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2668,7 +3178,7 @@ def main():
         phase_reduced()
         log(f"  phase 3: {time.perf_counter() - t0:.1f} s wall")
 
-    # phases 4-11 are the main paths.  Each runs with every launch count and
+    # phases 4-14 are the main paths.  Each runs with every launch count and
     # every count of plain-version calls on CUDA tensors set to 0 just
     # before it, and read just after; the profiles and checks a phase runs
     # beside its serving runs are off the path (``off_path``)
@@ -2706,7 +3216,12 @@ def main():
                   # its SSD heads; the decode reads pools through the partial
                   # entry; four ranks' launches come back from them
                   (13, "sharded prefill and serve step hymba-1.5b, deepseek-moe-16b "
-                   "and whisper-large-v3", phase_kinds, ("flash", "ssd", "paged_partials"))]
+                   "and whisper-large-v3", phase_kinds, ("flash", "ssd", "paged_partials")),
+                  # sharded training runs each rank's SSD heads on the SSD
+                  # kernel under autograd; the ranks' launches come back
+                  # from them (the GPipe step is granite's: no kernel)
+                  (14, "sharded training mamba2-2.7b and GPipe granite-3-8b",
+                   phase_sharded_training, ("ssd",))]
     path_recs = {}
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:

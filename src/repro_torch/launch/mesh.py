@@ -17,12 +17,38 @@ is copied to a pinned host buffer, moved there, and copied back.  That is
 the transport of the caller's backend, not a fallback: the pools, the
 kernels and the math stay on the card.
 
+Under autograd (``torch.is_grad_enabled()`` and an input that requires a
+gradient) the collectives are ``torch.autograd.Function``s whose backward
+is the adjoint of the reference's SPMD semantics, where a value replicated
+over an axis carries the whole cotangent on every rank (the Megatron
+convention, which GSPMD follows):
+
+* ``all_reduce`` sum: the output is replicated, so each rank's cotangent
+  is already the whole one (identity backward);
+* ``enter``: identity forward, sum over the axes backward.  It marks where
+  a replicated value enters rank-local work (a column-parallel product, a
+  slice by rank), whose cotangents are each rank's part;
+* ``all_gather``: the rank's slice of the cotangent.  Where the gathered
+  value feeds rank-local work, ``enter`` follows it, and the pair's
+  backward is a reduce-scatter.  Its transport is an all-reduce followed
+  by the slice on every backend: gloo has no reduce-scatter on CUDA tensors;
+* ``ring_shift``: the reverse hop;
+* ``all_reduce`` max: no gradient (the reference's ``stop_gradient``).
+
+Outside autograd they are the plain transports, bit for bit.  Every
+transport is counted in ``Mesh.stats`` (calls and host wall, forward and
+backward apart), and inside ``Mesh.taped`` the forward transports are
+recorded, then replayed when a checkpointed region is recomputed
+(``ParallelCtx.save_collectives``).
+
 Mesh builders are functions, so importing this module touches no process
 group.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -57,6 +83,9 @@ class Mesh:
         self.coords: Dict[str, int] = {}
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._ranks: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+        # (direction, op) -> [calls, host ms inside them]
+        self.stats: Dict[Tuple[str, str], list] = {}
+        self._tape: Optional[Tape] = None
         if rank is None:
             return
         if not 0 <= rank < self.size:
@@ -114,45 +143,196 @@ class Mesh:
     # ---- collectives (identity over axes of size 1) ----------------------
 
     def all_reduce(self, x: torch.Tensor, axes: Axes, op: str = "sum"):
-        """``x`` reduced over ``axes`` (``sum`` or ``max``), in place."""
+        """``x`` reduced over ``axes`` (``sum`` or ``max``): in place
+        outside autograd; under it a new tensor (see the module docstring)."""
         axes = self._axes(axes)
+        if op == "max" and _records(x):
+            x = x.detach().clone()
         if self.axis_size(axes) == 1:
             return x
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(x, op=red, group=self._group(axes))
-        return x
+        if _records(x):
+            return _AllReduce.apply(x, self, axes)
+        return self._move("all_reduce", self._reduce, x, axes, op)
+
+    def enter(self, x: torch.Tensor, axes: Axes):
+        """``x``, replicated over ``axes``, as the input of rank-local work:
+        the identity, whose backward sums the ranks' cotangents."""
+        axes = self._axes(axes)
+        if self.axis_size(axes) == 1 or not _records(x):
+            return x
+        return _Enter.apply(x, self, axes)
 
     def all_gather(self, x: torch.Tensor, axes: Axes, dim: int = -1):
         """The ranks' ``x`` along ``axes`` concatenated on ``dim`` in index
         order."""
         axes = self._axes(axes)
-        n = self.axis_size(axes)
-        if n == 1:
+        if self.axis_size(axes) == 1:
             return x
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=self._group(axes))
-        return torch.cat(parts, dim=dim)
+        if _records(x):
+            return _AllGather.apply(x, self, axes, dim)
+        return self._move("all_gather", self._gather, x, axes, dim)
 
     def ring_shift(self, x: torch.Tensor, axis: str):
         """One hop along ``axis``'s ring: rank i sends ``x`` to i + 1 and
         returns what i - 1 sent (the reference's ``ppermute`` with
         ``perm = [(i, (i + 1) % n)]``)."""
         axes = self._axes(axis)
-        n = self.axis_size(axes)
-        if n == 1:
+        if self.axis_size(axes) == 1:
             return x
+        if _records(x):
+            return _RingShift.apply(x, self, axes)
+        return self._move("ring_shift", self._shift, x, axes, 1)
+
+    # ---- transports, counted and taped -------------------------------------
+
+    def _move(self, op, fn, *args):
+        """``fn(*args)``, one transport, counted in ``stats``; inside
+        ``taped`` a forward transport is recorded, or replayed in the
+        recompute of a checkpointed region."""
+        tape = self._tape          # set only while a region's forward runs
+        if tape is not None and tape.replaying:
+            return tape.replay()
+        # a checkpointed region's recompute runs inside the backward
+        direction = "backward" if _in_backward() else "forward"
+        t0 = time.perf_counter()
+        out = fn(*args)
+        calls_ms = self.stats.setdefault((direction, op), [0, 0.0])
+        calls_ms[0] += 1
+        calls_ms[1] += 1e3 * (time.perf_counter() - t0)
+        if tape is not None:
+            tape.record(out)
+        return out
+
+    def _reduce(self, x, axes, op):
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(x, op=red, group=self._group(axes))
+        return x
+
+    def _gather(self, x, axes, dim):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.axis_size(axes))]
+        dist.all_gather(parts, x, group=self._group(axes))
+        return torch.cat(parts, dim=dim)
+
+    def _shift(self, x, axes, step):
+        """Rank i sends ``x`` to i + ``step`` and returns what i - ``step``
+        sent."""
         if self._staged("send_recv", x):
-            return self.ring_shift(_pinned(x), axis).to(x.device)
+            return self._shift(_pinned(x), axes, step).to(x.device)
+        n = self.axis_size(axes)
         ranks = self._ranks[axes]
         i = ranks.index(self.rank)
         x = x.contiguous()
         out = torch.empty_like(x)
-        ops = [dist.P2POp(dist.isend, x, ranks[(i + 1) % n], self._group(axes)),
-               dist.P2POp(dist.irecv, out, ranks[(i - 1) % n], self._group(axes))]
+        ops = [dist.P2POp(dist.isend, x, ranks[(i + step) % n], self._group(axes)),
+               dist.P2POp(dist.irecv, out, ranks[(i - step) % n], self._group(axes))]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return out
+
+    @contextlib.contextmanager
+    def taped(self, tape: "Tape"):
+        """Forward transports inside record to (or replay from) ``tape``."""
+        prev, self._tape = self._tape, tape
+        try:
+            yield
+        finally:
+            self._tape = prev
+
+    def stats_total(self, direction: Optional[str] = None):
+        """(calls, host ms) summed over ``stats``, of one direction or both."""
+        rows = [v for (d, _), v in self.stats.items() if direction in (None, d)]
+        return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+class Tape:
+    """The forward transports' outputs of one checkpointed region: recorded
+    in its first call, replayed in order in every later call (the
+    recompute), so that the backward does not move them again.  The region
+    calls ``start`` at each entry."""
+
+    def __init__(self):
+        self.outs: list = []
+        self.calls = 0
+        self.replaying = False
+        self._i = 0
+
+    def start(self):
+        self.replaying = self.calls > 0
+        self.calls += 1
+        self._i = 0
+
+    def record(self, out):
+        self.outs.append(out.detach())
+
+    def replay(self):
+        out = self.outs[self._i]
+        self._i += 1
+        return out.clone()
+
+
+def _records(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _in_backward() -> bool:
+    """True inside the autograd engine's backward (a checkpoint's recompute
+    included)."""
+    return torch._C._current_graph_task_id() != -1
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over ``axes``; the output is replicated, so the backward is the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh._move("all_reduce", mesh._reduce, x.clone(), axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; the backward sums the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._move("all_reduce", ctx.mesh._reduce, g.clone(),
+                               ctx.axes, "sum"), None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    """Gather on ``dim``; the backward takes the rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.block = (dim, mesh.index(axes) * x.shape[dim], x.shape[dim])
+        return mesh._move("all_gather", mesh._gather, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.block), None, None, None
+
+
+class _RingShift(torch.autograd.Function):
+    """One hop forward; the reverse hop backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh._move("ring_shift", mesh._shift, x, axes, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._move("ring_shift", ctx.mesh._shift, g, ctx.axes, -1),
+                None, None)
 
 
 def _pinned(x: torch.Tensor) -> torch.Tensor:
@@ -191,6 +371,12 @@ def make_degraded_mesh(n_alive: int, model_parallel: int = 16) -> Mesh:
 def make_local_mesh(dp: int = 1, mp: int = 1) -> Mesh:
     """A (data, model) mesh over the initialised process group."""
     return _bind((dp, mp), ("data", "model"))
+
+
+def make_pod_mesh(pod: int = 2, dp: int = 1, mp: int = 1) -> Mesh:
+    """A (pod, data, model) mesh over the initialised process group (the
+    pipeline's, ``launch/pipeline.py``)."""
+    return _bind((pod, dp, mp), ("pod", "data", "model"))
 
 
 def mesh_axes(mesh) -> Tuple[Tuple[str, ...], str]:

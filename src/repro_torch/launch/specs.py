@@ -4,9 +4,10 @@ placements.
 
 The decode cell is the sharded serve step (``launch/serve_step.py``), the
 prefill cell the sharded ``prefill_logits`` (``models/transformer.py``)
-with each rank's attention on the flash kernel's op.  The train cell waits
-for ROADMAP item 13c, and the meta-device dry run that sweeps the cells
-for 13d.
+with each rank's attention on the flash kernel's op, the train cell the
+sharded ``make_train_step`` (``train/trainer.py``: remat with the
+collectives saved, bf16 compute, ZeRO-1).  The meta-device dry run that
+sweeps the cells waits for ROADMAP item 13d.
 """
 from __future__ import annotations
 
@@ -15,12 +16,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import optim
 from repro_torch.configs import get_arch, get_shape, shape_applicable
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.launch import serve_step as SS
 from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import transformer as T
+from repro_torch.train import trainer
 
 
 @dataclass
@@ -42,6 +45,52 @@ def params_struct(cfg: ArchConfig, dtype) -> Any:
 
 def _param_shardings(mesh, cfg, pshape):
     return T.param_pspecs(pshape, cfg, model_size=mesh.shape["model"])
+
+
+def microbatches_for(cfg: ArchConfig, shape: ShapeConfig, mesh) -> int:
+    """Gradient-accumulation steps, so that each microbatch's activations
+    fit: one row a rank (VLMs at d >= 4096, whose frontend K/V inflates
+    them), two (d >= 2048) or four per microbatch."""
+    dp_axes, _ = mesh_axes(mesh)
+    b_local = max(shape.global_batch // mesh.axis_size(dp_axes), 1)
+    if cfg.n_frontend_tokens and cfg.d_model >= 4096:
+        micro_local = 1
+    elif cfg.d_model >= 2048:
+        micro_local = 2
+    else:
+        micro_local = 4
+    return max(b_local // micro_local, 1)
+
+
+def build_train_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                     compute_dtype=torch.bfloat16) -> Cell:
+    """The rank's sharded train step over ``microbatches_for`` microbatches:
+    remat with the self-attention's and FFN's collectives saved, a loss
+    chunk of 256, ZeRO-1, f32 masters and moments.  The reference computes
+    in bf16; ``compute_dtype`` lets a check run f32."""
+    dp_axes, model_axis = mesh_axes(mesh)
+    ctx = T.ParallelCtx(mesh=mesh, dp_axes=dp_axes, model_axis=model_axis,
+                        remat=True, compute_dtype=compute_dtype,
+                        loss_chunk=256, save_collectives=True)
+    tcfg = trainer.TrainConfig(microbatches=microbatches_for(cfg, shape, mesh),
+                               zero1=True, compute_dtype=compute_dtype)
+    has_fe = cfg.n_frontend_tokens > 0
+    fn = trainer.make_train_step(cfg, ctx, tcfg, has_frontend=has_fe)
+    pshape = params_struct(cfg, torch.float32)
+    nm = tcfg.microbatches
+    b, s = shape.global_batch, shape.seq_len
+    toks = torch.empty((nm, b // nm, s), dtype=torch.int32, device="meta")
+    args = [pshape, optim.init(pshape), toks, toks]
+    if has_fe:
+        args.append(torch.empty((nm, b // nm, cfg.n_frontend_tokens,
+                                 cfg.d_model), dtype=compute_dtype,
+                                device="meta"))
+    ins, outs = trainer.make_shardings(cfg, ctx, tcfg, pshape,
+                                       has_frontend=has_fe)
+    return Cell(cfg, shape, fn, tuple(args), ins, donate=(0, 1),
+                meta={"kind": "train", "microbatches": nm, "ctx": ctx,
+                      "tcfg": tcfg},
+                out_shardings=outs)
 
 
 def build_prefill_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
@@ -101,7 +150,7 @@ def build_cell(arch_name: str, shape_name: str, mesh,
     if not ok:
         return None
     if shape.kind == "train":
-        raise NotImplementedError("the train cell is ROADMAP item 13c")
+        return build_train_cell(cfg, shape, mesh)
     if shape.kind == "prefill":
         return build_prefill_cell(cfg, shape, mesh)
     return build_decode_cell(cfg, shape, mesh, kv_dtype=kv_dtype)

@@ -8,8 +8,10 @@ gives f32), so an f32 activation never silently meets a bf16 weight.
 On a rank of a mesh (``launch/mesh.py``) the MLPs take this rank's blocks
 of their weights, as ``param_pspecs`` cuts them over the model axis (a dim
 is cut where its size divides the axis), and return the whole output,
-replicated over the axis: ``row_parallel`` is the Megatron pair's second
-half, with its sum written out.
+replicated over the axis: ``col_parallel`` and ``row_parallel`` are the
+Megatron pair, with its sum written out.  Under autograd the replicated
+input of a rank's block passes ``mesh.enter``, whose backward sums the
+ranks' cotangents (``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -95,6 +97,15 @@ def model_ranks(mesh, axis="model"):
     return mesh.shape[axis], mesh.index(axis)
 
 
+def col_parallel(x, w, full, mesh=None, axis="model"):
+    """``x @ w`` for a weight ``w`` of ``full`` columns that is
+    column-parallel on ``mesh``'s ``axis``: ``w`` holds all its columns or
+    this rank's block of them, and ``x`` is replicated over the axis."""
+    if mesh is not None and w.shape[-1] != full:
+        x = mesh.enter(x, axis)
+    return matmul(x, w)
+
+
 def row_parallel(h, w, full, mesh=None, axis="model"):
     """``h @ w`` for a weight ``w`` of ``full`` rows that is row-parallel on
     ``mesh``'s ``axis``: ``w`` holds all its rows or this rank's block of
@@ -106,7 +117,7 @@ def row_parallel(h, w, full, mesh=None, axis="model"):
         if not h_cut:
             n = w.shape[-2]
             r = mesh.index(axis)
-            h = h[..., r * n:(r + 1) * n]
+            h = mesh.enter(h, axis)[..., r * n:(r + 1) * n]
         return mesh.all_reduce(matmul(h, w), axis, "sum")
     if h_cut:
         h = mesh.all_gather(h, axis, dim=-1)
@@ -117,7 +128,7 @@ def swiglu(params, x, mesh=None, axis="model", d_ff=0):
     """SwiGLU FFN.  params: wgu (d, 2f) fused gate+up, wd (f, d).
     The halves are interleaved: wgu[:, 0::2] is the gate, wgu[:, 1::2] up.
     On a rank of ``mesh``, ``d_ff`` is the global f."""
-    gu = matmul(x, params["wgu"])
+    gu = col_parallel(x, params["wgu"], 2 * d_ff, mesh, axis)
     if mesh is not None and gu.shape[-1] != 2 * d_ff and \
             params["wd"].shape[-2] == d_ff:
         # wd whole but wgu cut: a gate/up pair may straddle two blocks
@@ -133,7 +144,7 @@ def gelu_mlp(params, x, mesh=None, axis="model", d_ff=0):
     """Plain GELU MLP (tanh approximation, as ``jax.nn.gelu``).
     params: wi (d, f), wo (f, d).  On a rank of ``mesh``, ``d_ff`` is the
     global f."""
-    h = matmul(x, params["wi"])
+    h = col_parallel(x, params["wi"], d_ff, mesh, axis)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     if mesh is None:
         return matmul(h, params["wo"])

@@ -9,8 +9,12 @@ Two paths, as in the reference:
   model axis: the tokens are the rank's rows, replicated over the axis,
   each rank dispatches only the entries routed to *its* ``e_local``
   experts, and one sum over the axis combines them, as the reference's
-  ``psum`` inside its ``shard_map``.  The router and its aux loss run on
-  the rank's rows; the capacity comes from the rank's token count.
+  ``psum`` inside its ``shard_map``.  The router runs on the rank's rows
+  and the capacity comes from the rank's token count; the aux loss is the
+  global batch's, as the reference's router runs under GSPMD over every
+  data-sharded row: its sums and row count are summed over the batch
+  axes.  Under autograd the rows and gates enter the rank's experts
+  through ``mesh.enter`` (``launch/mesh.py``).
 
 What the port keeps bit for bit from the reference, and how:
 
@@ -76,11 +80,9 @@ def init_moe(d: int, moe: MoEConfig, n_layers: int, *,
     return params
 
 
-def router_topk(params, x, moe: MoEConfig):
-    """Router probabilities + top-k selection + aux losses.
-
-    x: (T, d).  Returns (eids (T,k) int64, gates (T,k) f32, aux_loss scalar).
-    """
+def _route(params, x, moe: MoEConfig):
+    """(eids, gates, probs, per-row expert indicator, per-row lse^2) of the
+    router over x (T, d)."""
     logits = x.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     # stable descending sort: on a tie the lower expert index comes first
@@ -88,16 +90,41 @@ def router_topk(params, x, moe: MoEConfig):
     gates, eids = gates[:, :moe.top_k], eids[:, :moe.top_k]
     if moe.renorm_topk:
         gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    ind = F.one_hot(eids, moe.n_experts).float().sum(1)              # (T,E)
+    return eids, gates, probs, ind, torch.logsumexp(logits, dim=-1) ** 2
 
-    # load-balance aux: E * sum_e (frac tokens to e) * (mean prob of e)
+
+def _aux(moe: MoEConfig, f_e, p_e, zmean):
+    """Load-balance aux, E * sum_e (frac tokens to e) * (mean prob of e),
+    plus the z-loss."""
+    aux = moe.n_experts * torch.sum(f_e * p_e) * moe.router_aux_coef
+    return aux + zmean * moe.router_z_coef
+
+
+def router_topk(params, x, moe: MoEConfig):
+    """Router probabilities + top-k selection + aux losses.
+
+    x: (T, d).  Returns (eids (T,k) int64, gates (T,k) f32, aux_loss scalar).
+    """
+    eids, gates, probs, ind, lse2 = _route(params, x, moe)
+    return eids, gates, _aux(moe, ind.mean(0) / moe.top_k, probs.mean(0),
+                             lse2.mean())
+
+
+def router_topk_global(params, x, moe: MoEConfig, mesh, dp_axes):
+    """``router_topk`` over a rank's rows x, with the aux loss of every
+    rank's rows over ``dp_axes`` (the reference's router runs under GSPMD
+    over the global batch): the indicator, probability and lse^2 sums and
+    the row count summed over the axes in one all-reduce."""
+    eids, gates, probs, ind, lse2 = _route(params, x, moe)
     e = moe.n_experts
-    ind = F.one_hot(eids, e).float().sum(1)                          # (T,E)
-    f_e = ind.mean(0) / moe.top_k
-    p_e = probs.mean(0)
-    aux = e * torch.sum(f_e * p_e) * moe.router_aux_coef
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * \
-        moe.router_z_coef
-    return eids, gates, aux + zloss
+    sums = mesh.all_reduce(torch.cat([
+        ind.sum(0), probs.sum(0), lse2.sum()[None],
+        torch.full((1,), x.shape[0], dtype=torch.float32, device=x.device)]),
+        dp_axes, "sum")
+    t = sums[-1]
+    return eids, gates, _aux(moe, sums[:e] / t / moe.top_k, sums[e:2 * e] / t,
+                             sums[2 * e] / t)
 
 
 def _expert_mlp(x, wg, wu, wd):
@@ -165,20 +192,26 @@ def capacity(t: int, moe: MoEConfig) -> int:
     return max(int(t * moe.top_k / moe.n_experts * moe.capacity_factor), 8)
 
 
-def moe_ffn(params, x, moe: MoEConfig, *, mesh=None, model_axis="model"):
+def moe_ffn(params, x, moe: MoEConfig, *, mesh=None, model_axis="model",
+            dp_axes=()):
     """Routed + shared expert FFN.  x: (B, S, d) (or (T, d)).
 
     Capacity-bounded dispatch over every (B * S) row of the call.  On a
     rank of ``mesh`` (more than one rank on ``model_axis``): ``x`` is the
     rank's rows, the expert tables (and the shared experts) are its blocks
-    under ``param_pspecs``, and the output is summed over the axis.
+    under ``param_pspecs``, and the output is summed over the axis; the
+    aux loss is the rows' of every rank over ``dp_axes``
+    (``router_topk_global``).
     Returns (out in x's dtype, aux_loss)."""
     squeeze = x.dim() == 2
     if squeeze:
         x = x[None]
     b, s, d = x.shape
     xt = x.reshape(-1, d)
-    eids, gates, aux = router_topk(params, xt, moe)
+    if mesh is not None and mesh.axis_size(dp_axes) > 1:
+        eids, gates, aux = router_topk_global(params, xt, moe, mesh, dp_axes)
+    else:
+        eids, gates, aux = router_topk(params, xt, moe)
     wg, wu, wd = (params["experts"][n] for n in ("wg", "wu", "wd"))
     ep, rank = model_ranks(mesh, model_axis)
     e_pad = padded_experts(moe)
@@ -190,8 +223,11 @@ def moe_ffn(params, x, moe: MoEConfig, *, mesh=None, model_axis="model"):
             raise ValueError(f"{e_pad} experts do not fit {ep} ranks of "
                              f"{e_local}")
         lo, hi = rank * e_local, (rank + 1) * e_local
-        wg, wu, wd = (F.pad(w, (0, 0, 0, 0, 0, e_local * ep - e_pad))[lo:hi]
+        wg, wu, wd = (F.pad(mesh.enter(w, model_axis),
+                            (0, 0, 0, 0, 0, e_local * ep - e_pad))[lo:hi]
                       for w in (wg, wu, wd))
+    if ep > 1:                         # the rows enter the rank's experts
+        xt, gates = mesh.enter(xt, model_axis), mesh.enter(gates, model_axis)
     out = _dispatch_local(xt, eids, gates, wg, wu, wd, e_base=rank * e_local,
                           e_local=e_local, cap=capacity(b * s, moe))
     if ep > 1:

@@ -28,7 +28,11 @@ divide the axis, every head's block of head_dim (the recurrence is
 independent per head_dim row); else all of it.  ``x`` and the outputs are
 whole and replicated over the axis; the gate norm's mean of squares is
 summed over it, and the decode's conv ring (replicated) gets the rank's
-``x`` columns back in one all-gather.
+``x`` columns back in one all-gather.  Under autograd every replicated
+value that enters the rank's part passes ``mesh.enter`` (``launch/mesh.py``):
+``x`` into the cut projections, the conv bias's x block, and, where the
+recurrence runs on the rank's part, ``B``, ``C`` and (on head_dim) ``dt``,
+``A`` and ``D``.
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ops import ssd_scan_op
-from repro_torch.models.layers import (matmul, model_ranks, rms_norm,
-                                       row_parallel)
+from repro_torch.models.layers import (col_parallel, matmul, model_ranks,
+                                       rms_norm, row_parallel)
 
 
 def ssm_dims(d_model: int, ssm: SSMConfig):
@@ -58,12 +62,19 @@ def _promote(a, b):
     return a.to(t), b.to(t)
 
 
-def _project(params, x):
-    z = matmul(x, params["wz"])
-    xs = matmul(x, params["wx"])
+def _project(params, x, d_inner, n_heads, mesh=None, axis="model"):
+    """z, x, B/C and dt before the conv: ``wz``, ``wx`` and ``wdt``
+    column-parallel on ``mesh``, ``wbc`` whole."""
+    z = col_parallel(x, params["wz"], d_inner, mesh, axis)
+    xs = col_parallel(x, params["wx"], d_inner, mesh, axis)
     bc = matmul(x, params["wbc"])
-    dt = matmul(x, params["wdt"])
+    dt = col_parallel(x, params["wdt"], n_heads, mesh, axis)
     return z, xs, bc, dt
+
+
+def _enter(t, mesh, axis):
+    """``mesh.enter`` (the identity without a mesh)."""
+    return t if mesh is None else mesh.enter(t, axis)
 
 
 def _causal_conv(w, b, x, kernel):
@@ -156,13 +167,14 @@ def _block(x, n, rank, dim=-1):
     return x.narrow(dim, rank * n, n)
 
 
-def _conv_b(params, d_inner, rank):
+def _conv_b(params, d_inner, rank, mesh=None, axis="model"):
     """The conv bias of this rank's conv channels: its block of the x
     channels (where ``conv_x`` is cut), then the whole B/C part."""
     cb, nx = params["conv_b"], params["conv_x"].shape[-1]
     if nx == d_inner:
         return cb
-    return torch.cat([_block(cb[:d_inner], nx, rank), cb[d_inner:]])
+    return torch.cat([_block(_enter(cb[:d_inner], mesh, axis), nx, rank),
+                      cb[d_inner:]])
 
 
 def _state_part(xs, dt, params, ssm: SSMConfig, n_heads, mesh, axis):
@@ -175,10 +187,14 @@ def _state_part(xs, dt, params, ssm: SSMConfig, n_heads, mesh, axis):
     if layout != "heads" and xs.shape[-1] != n_heads * ssm.head_dim:
         xs = mesh.all_gather(xs, axis, dim=-1)
     xs = xs.reshape(*xs.shape[:-1], -1, ssm.head_dim)
-    if layout == "head_dim":
-        xs = _block(xs, ssm.head_dim // tp, rank)
     dt = _softplus(dt.float() + params["dt_bias"])
-    return xs, dt, -torch.exp(params["A_log"]), params["D"]
+    A, D = -torch.exp(params["A_log"]), params["D"]
+    if layout == "head_dim" and tp > 1:
+        # every head's block of head_dim: the replicated per-head inputs
+        # enter the rank's part
+        xs = _block(mesh.enter(xs, axis), ssm.head_dim // tp, rank)
+        dt, A, D = (mesh.enter(t, axis) for t in (dt, A, D))
+    return xs, dt, A, D
 
 
 def _gate_out(y, z, params, d_inner, ssm: SSMConfig, n_heads, mesh, axis):
@@ -189,13 +205,15 @@ def _gate_out(y, z, params, d_inner, ssm: SSMConfig, n_heads, mesh, axis):
         y = mesh.all_gather(y, axis, dim=-1)
     y = y.reshape(*y.shape[:-2], -1)
     if y.shape[-1] != z.shape[-1]:                # back to z's column block
-        y = _block(y, z.shape[-1], rank)
+        y = _block(mesh.enter(y, axis), z.shape[-1], rank)
     y = y * F.silu(z.float()).to(y.dtype)
     if z.shape[-1] == d_inner:
         y = rms_norm(params["gate_norm"], y)
     else:                                         # the mean over all d_inner
         yf = y.float()
-        var = mesh.all_reduce((yf * yf).sum(-1, keepdim=True), axis, "sum")
+        # the sum feeds the rank's columns: its backward sums theirs
+        var = mesh.enter(mesh.all_reduce((yf * yf).sum(-1, keepdim=True),
+                                         axis, "sum"), axis)
         y = (yf * torch.rsqrt(var / d_inner + 1e-5)
              * (1.0 + params["gate_norm"].float())).to(y.dtype)
     return row_parallel(y, params["out_proj"], d_inner, mesh, axis)
@@ -231,14 +249,17 @@ def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False, *,
     if return_state and tp > 1:
         raise ValueError("return_state takes one rank")
 
-    z, xs, bc, dt = _project(params, x)
+    z, xs, bc, dt = _project(params, x, d_inner, n_heads, mesh, axis)
     xbc_raw = torch.cat([xs, bc], dim=-1)
     conv_w = torch.cat([params["conv_x"], params["conv_bc"]], dim=-1)
-    xbc = _causal_conv(conv_w, _conv_b(params, d_inner, rank), xbc_raw,
-                       ssm.conv_kernel)
+    xbc = _causal_conv(conv_w, _conv_b(params, d_inner, rank, mesh, axis),
+                       xbc_raw, ssm.conv_kernel)
     nx = xs.shape[-1]                  # this rank's x columns
     B_mat = xbc[..., nx:nx + g * n].reshape(b, s, g, n)
     C_mat = xbc[..., nx + g * n:].reshape(b, s, g, n)
+    if tp > 1 and tp_layout(n_heads, ssm.head_dim, tp):
+        # the recurrence runs on the rank's part
+        B_mat, C_mat = mesh.enter(B_mat, axis), mesh.enter(C_mat, axis)
     xs, dt, A, D = _state_part(xbc[..., :nx], dt, params, ssm, n_heads,
                                mesh, axis)
     B_mat = _groups(B_mat, n_heads, xs.shape[2], mesh, axis)
@@ -291,7 +312,7 @@ def ssm_decode_step(params, x, state, d_model, ssm: SSMConfig, *,
     g, n = ssm.n_groups, ssm.d_state
     _, rank = model_ranks(mesh, axis)
 
-    z, xs, bc, dt = _project(params, x)
+    z, xs, bc, dt = _project(params, x, d_inner, n_heads, mesh, axis)
     nx = xs.shape[-1]                  # this rank's x columns
     # the conv ring holds every x column: gather the rank's
     xs_all = xs if nx == d_inner else mesh.all_gather(xs, axis, dim=-1)

@@ -27,11 +27,21 @@ vocab-parallel embedding and logits, expert parallelism in the MoE FFN,
 and, under ``seq_parallel``, residuals cut on the sequence between layers
 (``Rows``: each mixer and FFN gathers the sequence and keeps its rows of
 the sum).  A dim that ``param_pspecs`` leaves whole takes the unsharded
-path.  The loss (``lm_loss``) still runs on one device (the vocab-sharded
-loss is ROADMAP item 13c).
+path.  The loss (``lm_loss``) is vocab-sharded on a mesh, its mean taken
+over the global batch.
+
+Under autograd every collective is differentiable (``launch/mesh.py``):
+a value replicated over the model axis carries the whole cotangent on
+every rank, and where it enters rank-local work (a column-parallel
+product, a slice by rank, a parameter applied to the rank's rows under
+``seq_parallel``) it passes ``mesh.enter``, whose backward sums the
+ranks' parts.  Each rank's gradients are then its shards' over its rows
+of the batch; the optimizer sums them over the batch axes
+(``optim.adamw``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, List, Tuple
@@ -42,12 +52,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_flatten, tree_unflatten
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import Tape
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, normal_,
-                                       model_ranks, records_grad, rms_norm,
-                                       row_parallel, swiglu)
+from repro_torch.models.layers import (apply_rope, col_parallel, gelu_mlp,
+                                       matmul, normal_, model_ranks,
+                                       records_grad, rms_norm, row_parallel,
+                                       swiglu)
 
 
 # --------------------------------------------------------------------------
@@ -68,6 +80,11 @@ class ParallelCtx:
     compute_dtype: Any = torch.float32
     attn_impl: str = "reference"          # unread, as in the reference
     seq_parallel: bool = False            # cut residuals on S over model
+    save_collectives: bool = False        # under remat, keep the outputs of
+                                          # the self-attention's and FFN's
+                                          # collectives (the reference's
+                                          # attn_out/mlp_out policy), so the
+                                          # recompute does not move them
 
     def residual_spec(self):
         """Layer-boundary placement of a (B, S, d) activation."""
@@ -83,6 +100,10 @@ class ParallelCtx:
     def tp(self) -> int:
         """Ranks on the model axis (1 without a mesh)."""
         return model_ranks(self.mesh, self.model_axis)[0]
+
+    def dp_size(self) -> int:
+        """Ranks over the batch axes (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.axis_size(self.dp_axes)
 
 
 @dataclass(frozen=True)
@@ -108,6 +129,7 @@ class Rows:
             return x
         tp = self.ctx.tp
         n = -(-self.s // tp)
+        x = self.ctx.mesh.enter(x, self.ctx.model_axis)
         if n * tp != x.shape[1]:
             x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, n * tp - x.shape[1]))
         return x[:, self.ctx.mesh.index(self.ctx.model_axis) * n:][:, :n]
@@ -118,6 +140,22 @@ class Rows:
             return x
         whole = self.ctx.mesh.all_gather(x, self.ctx.model_axis, dim=1)
         return whole[:, :self.s]
+
+    def param(self, w):
+        """A replicated parameter applied to this rank's rows."""
+        return self.ctx.mesh.enter(w, self.ctx.model_axis) if self.cut else w
+
+    def params(self, p):
+        """A layer's tree with the parameters it applies to the rank's rows
+        (its norms and cross-attention gate) through ``param``."""
+        if not self.cut:
+            return p
+        return {k: self.param(v) if k in _ROW_PARAMS else v
+                for k, v in p.items()}
+
+
+# the parameters a layer applies to its residual rows
+_ROW_PARAMS = frozenset({"ln1", "lnx", "ln2", "attn_norm", "ssm_norm", "xgate"})
 
 
 # --------------------------------------------------------------------------
@@ -418,7 +456,9 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
     tp, mesh, ax = ctx.tp, ctx.mesh, ctx.model_axis
     q_shardable = cfg.n_heads % tp == 0
     kv_shardable = cfg.n_kv_heads % tp == 0
-    q, k, v = matmul(x, p["wq"]), matmul(src, p["wk"]), matmul(src, p["wv"])
+    q = col_parallel(x, p["wq"], cfg.n_heads * hd, mesh, ax)
+    k = col_parallel(src, p["wk"], cfg.n_kv_heads * hd, mesh, ax)
+    v = col_parallel(src, p["wv"], cfg.n_kv_heads * hd, mesh, ax)
     if tp > 1 and not q_shardable and q.shape[-1] != cfg.n_heads * hd:
         q = mesh.all_gather(q, ax, dim=-1)      # the heads' columns, whole
     q = q.reshape(b, s, -1, hd)
@@ -438,7 +478,7 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
         first = mesh.index(ax) * hl
         idx = torch.arange(first, first + hl, device=x.device) // \
             (cfg.n_heads // cfg.n_kv_heads)
-        k, v = k[:, :, idx], v[:, :, idx]
+        k, v = mesh.enter(k, ax)[:, :, idx], mesh.enter(v, ax)[:, :, idx]
     elif tp > 1 and not q_shardable and cfg.n_heads == cfg.n_kv_heads:
         # MHA with heads that do not divide TP (whisper 20H): zero-pad to
         # the next multiple and take this rank's heads; a zero query over
@@ -446,8 +486,8 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
         hl = -(-cfg.n_heads // tp)
         n_pad = hl * tp - cfg.n_heads
         first = mesh.index(ax) * hl
-        q, k, v = (F.pad(t, (0, 0, 0, n_pad))[:, :, first:first + hl]
-                   for t in (q, k, v))
+        q, k, v = (F.pad(mesh.enter(t, ax), (0, 0, 0, n_pad))
+                   [:, :, first:first + hl] for t in (q, k, v))
     if attention is None:
         out = attn_lib.blockwise_attention(
             q, k, v, causal=causal, window=window,
@@ -465,7 +505,8 @@ def _apply_ffn(p, x, cfg: ArchConfig, ctx: ParallelCtx, seg: Segment):
     rank of a mesh ``x`` and the output are whole, replicated over model."""
     if seg.ffn == "moe":
         return moe_lib.moe_ffn(p["moe"], x, cfg.moe, mesh=ctx.mesh,
-                               model_axis=ctx.model_axis)
+                               model_axis=ctx.model_axis,
+                               dp_axes=ctx.dp_axes)
     f = seg.d_ff or cfg.d_ff
     mlp = gelu_mlp if seg.ffn == "gelu" else swiglu
     return mlp(p["mlp"], x, ctx.mesh, ctx.model_axis, f), 0.0
@@ -488,12 +529,25 @@ def xgate(p, x):
     return torch.tanh(p["xgate"].float()).to(x.dtype)
 
 
+def _taped(ctx: ParallelCtx, tape):
+    """The scope whose forward collectives ``tape`` keeps (none without a
+    tape or a mesh)."""
+    if tape is None or ctx.mesh is None:
+        return contextlib.nullcontext()
+    return ctx.mesh.taped(tape)
+
+
 def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
-                frontend=None, positions=None, attention=None, rows=None):
+                frontend=None, positions=None, attention=None, rows=None,
+                tape=None):
     """One layer.  x: (B, S, d), or this rank's rows of it (``rows``, a
     ``Rows``); ``frontend``: the (B, N, d) states the cross-attention reads;
-    ``attention`` as in ``_attend``.  Returns (x, aux_loss)."""
+    ``attention`` as in ``_attend``; ``tape``: the ``launch.mesh.Tape`` that
+    keeps the collectives of the self-attention (``attn``, ``enc`` and
+    ``dec`` kinds) and of the FFN, the reference's ``attn_out`` and
+    ``mlp_out``.  Returns (x, aux_loss)."""
     rows = rows or Rows(ctx, x.shape[1])
+    p = rows.params(p)
     h = rows.gather(rms_norm(p["ln1"], x, cfg.norm_eps))
     if seg.kind == "xattn":
         x = x + xgate(p, x) * rows.take(_attend(
@@ -502,9 +556,12 @@ def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
     else:
         a = y = None
         if seg.kind in ("attn", "enc", "dec", "hybrid"):
-            a = rows.take(_attend(p["attn"], h, cfg, ctx, window=seg.window,
-                                  causal=seg.kind != "enc",
-                                  positions=positions, attention=attention))
+            with _taped(ctx, tape if seg.kind != "hybrid" else None):
+                a = rows.take(_attend(p["attn"], h, cfg, ctx,
+                                      window=seg.window,
+                                      causal=seg.kind != "enc",
+                                      positions=positions,
+                                      attention=attention))
         if seg.kind in ("ssm", "hybrid"):
             y = rows.take(ssm_lib.ssm_forward(p["ssm"], h, cfg.d_model,
                                               cfg.ssm, mesh=ctx.mesh,
@@ -518,8 +575,10 @@ def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
     aux = 0.0
     if seg.ffn != "none":
         h2 = rows.gather(rms_norm(p["ln2"], x, cfg.norm_eps))
-        out, aux = _apply_ffn(p, h2, cfg, ctx, seg)
-        x = x + rows.take(out)
+        with _taped(ctx, tape):
+            out, aux = _apply_ffn(p, h2, cfg, ctx, seg)
+            out = rows.take(out)
+        x = x + out
     return x, aux
 
 
@@ -539,15 +598,22 @@ def run_segments(seg_params, segs, x, cfg, ctx, frontend=None,
     (``rows`` as in ``apply_layer``).  With ``ctx.remat`` under autograd
     each layer is checkpointed, as the reference's ``jax.checkpoint`` of
     its scan body: the backward keeps only each layer's input and
-    recomputes the rest."""
+    recomputes the rest; with ``ctx.save_collectives`` on a mesh the
+    recompute takes the self-attention's and FFN's collective outputs from
+    the layer's tape instead of moving them again (the same values, so the
+    result is bit-identical)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_stack, seg in zip(seg_params, segs):
         remat = ctx.remat and records_grad(x, *tree_flatten(p_stack)[0])
+        save = remat and ctx.save_collectives and ctx.mesh is not None
         for p_layer in _unstack(p_stack, seg.count):
-            def layer(x, p_layer=p_layer, seg=seg):
+            def layer(x, p_layer=p_layer, seg=seg,
+                      tape=Tape() if save else None):
+                if tape is not None:
+                    tape.start()
                 return apply_layer(p_layer, x, seg, cfg, ctx,
                                    frontend=frontend, positions=positions,
-                                   attention=attention, rows=rows)
+                                   attention=attention, rows=rows, tape=tape)
             x, a = (checkpoint(layer, x, use_reentrant=False) if remat
                     else layer(x))
             aux_total = aux_total + a
@@ -584,7 +650,8 @@ def encode(params, frontend, cfg: ArchConfig, ctx: ParallelCtx,
     e, _ = run_segments(params["enc_segments"], encoder_segments(cfg),
                         rows.take(e), cfg, ctx, attention=attention,
                         rows=rows)
-    return rows.gather(rms_norm(params["enc_ln"], e, cfg.norm_eps))
+    return rows.gather(rms_norm(rows.param(params["enc_ln"]), e,
+                                cfg.norm_eps))
 
 
 def embed(params, tokens, cfg: ArchConfig, ctx: ParallelCtx):
@@ -614,7 +681,7 @@ def logits(params, h, cfg: ArchConfig, ctx: ParallelCtx):
     if w.shape[1] == cfg.padded_vocab:
         return mask_vocab_pad(row_parallel(h, w, cfg.d_model, ctx.mesh,
                                            ctx.model_axis).float(), cfg)
-    out = matmul(h, w).float()
+    out = matmul(ctx.mesh.enter(h, ctx.model_axis), w).float()
     lo = ctx.mesh.index(ctx.model_axis) * w.shape[1]
     ids = lo + torch.arange(w.shape[1], device=h.device)
     out = torch.where(ids < cfg.vocab, out, -1e30)
@@ -644,7 +711,7 @@ def forward_hidden(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
     x, aux = run_segments(params["segments"], segments(cfg), rows.take(x),
                           cfg, ctx, frontend=enc_out, attention=attention,
                           rows=rows)
-    x = rms_norm(params["final_ln"], x, cfg.norm_eps)
+    x = rms_norm(rows.param(params["final_ln"]), x, cfg.norm_eps)
     return x, aux
 
 
@@ -672,32 +739,73 @@ def prefill_logits(params, tokens, cfg: ArchConfig, ctx: ParallelCtx,
     return logits(params, h[:, -1], cfg, ctx)
 
 
-def lm_loss(params, tokens, labels, cfg: ArchConfig, ctx: ParallelCtx,
-            frontend=None):
-    """Mean next-token cross-entropy plus the MoE aux loss (an f32 scalar).
+def _vocab_block(params, cfg: ArchConfig, ctx: ParallelCtx, dtype):
+    """The rank's ``padded_vocab / tp`` columns of the unembedding, in
+    ``dtype``: a vocab-parallel tied table's own block; else the whole
+    matrix (gathered where it is cut on d) entering rank-local work."""
+    w = unembed_matrix(params, cfg).to(dtype)
+    mesh, ax, tp = ctx.mesh, ctx.model_axis, ctx.tp
+    if cfg.padded_vocab % tp:
+        raise ValueError(f"vocab {cfg.padded_vocab} does not split over "
+                         f"{tp} model ranks")
+    v_loc = cfg.padded_vocab // tp
+    if w.shape[1] == v_loc:
+        return w
+    if w.shape[0] != cfg.d_model:
+        w = mesh.all_gather(w, ax, dim=0)
+    return mesh.enter(w, ax).narrow(1, mesh.index(ax) * v_loc, v_loc)
+
+
+def nll_sum(params, h, labels, cfg: ArchConfig, ctx: ParallelCtx,
+            masked: bool = True):
+    """(the NLL summed over the positions of ``labels``, their count) for
+    the final hidden states ``h`` (B, S, d), whole over S.
 
     Never holds (B, S, V) logits: the sequence is taken in
     ``ctx.loss_chunk`` slices, each chunk's logits formed as the reference
     forms them (the product in the hidden states' dtype, then f32) with the
     padded vocab tail masked, and the chunk recomputed in the backward
-    under ``ctx.remat``.  Labels ``< 0`` are left out of the mean.  One
-    device only: the sharded loss is ROADMAP item 13c."""
-    if ctx.mesh is not None:
-        raise NotImplementedError("lm_loss on a mesh is ROADMAP item 13c")
-    h, aux = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
-    w = unembed_matrix(params, cfg).to(h.dtype)
+    under ``ctx.remat``.  The log-sum-exp is the reference's
+    (``jax.nn.logsumexp``): the maximum, taken with no gradient, plus the
+    log of the shifted exponentials' sum.  ``masked``: labels ``< 0`` are
+    left out (else they count, with a picked logit of 0, as the reference's
+    pipeline tail's one-hot gives them).
+
+    On a rank of a mesh (the reference's ``sharded_chunk_nll``) each model
+    rank forms the logits of its ``padded_vocab / tp`` columns, and the
+    maximum, the exponentials' sum and the picked logit are reduced over
+    the model axis; the sums are the rank's rows'."""
     s = h.shape[1]
     chunk = min(ctx.loss_chunk, s)
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the "
                          f"loss chunk {chunk}")
+    mesh, ax = ctx.mesh, ctx.model_axis
+    if mesh is None:
+        w = unembed_matrix(params, cfg).to(h.dtype)
+        lo = 0
+        reduce = lambda x, op: x
+    else:
+        w = _vocab_block(params, cfg, ctx, h.dtype)
+        h = mesh.enter(h, ax)
+        lo = mesh.index(ax) * w.shape[1]
+        reduce = lambda x, op: mesh.all_reduce(x, ax, op)
+    v_loc = w.shape[1]
+    ids = lo + torch.arange(v_loc, device=h.device)
 
     def chunk_nll(hs, ls):
-        logits = mask_vocab_pad(matmul(hs, w).float(), cfg)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, ls.clamp(min=0).long()[..., None])[..., 0]
-        valid = ls >= 0
-        return torch.where(valid, lse - picked, 0.0).sum(), valid.sum()
+        logits = matmul(hs, w).float()
+        if cfg.padded_vocab != cfg.vocab:
+            logits = torch.where(ids < cfg.vocab, logits, -1e30)
+        m = reduce(logits.detach().amax(-1), "max")
+        sumexp = reduce(torch.exp(logits - m[..., None]).sum(-1), "sum")
+        local = ls.long() - lo
+        mine = (local >= 0) & (local < v_loc)
+        picked = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+        picked = reduce(torch.where(mine, picked, 0.0), "sum")
+        valid = ls >= 0 if masked else torch.ones_like(ls, dtype=torch.bool)
+        nll = torch.log(sumexp) + m - picked
+        return torch.where(valid, nll, 0.0).sum(), valid.sum()
 
     remat = ctx.remat and records_grad(h, w)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -708,4 +816,24 @@ def lm_loss(params, tokens, labels, cfg: ArchConfig, ctx: ParallelCtx,
                   else chunk_nll(hs, ls))
         total = total + nll
         count = count + n
+    return total, count
+
+
+def lm_loss(params, tokens, labels, cfg: ArchConfig, ctx: ParallelCtx,
+            frontend=None):
+    """Mean next-token cross-entropy plus the MoE aux loss (an f32 scalar),
+    the NLL chunked over the sequence (``nll_sum``).  Labels ``< 0`` are
+    left out of the mean.
+
+    On a rank of a mesh the hidden states are gathered over the
+    sequence-parallel rows once (not once per loss chunk), the NLL is
+    vocab-sharded, and the mean is the global batch's: the NLL sum and the
+    label count are summed over the batch axes, so every rank returns the
+    same loss and each rank's gradients are those of its rows."""
+    h, aux = forward_hidden(params, tokens, cfg, ctx, frontend=frontend)
+    h = Rows(ctx, tokens.shape[1]).gather(h)
+    total, count = nll_sum(params, h, labels, cfg, ctx)
+    if ctx.mesh is not None:
+        total = ctx.mesh.all_reduce(total, ctx.dp_axes, "sum")
+        count = ctx.mesh.all_reduce(count, ctx.dp_axes, "sum")
     return total / torch.clamp(count, min=1) + aux

@@ -485,3 +485,17 @@ def test_cuda_flash_kernel_at_sharded_local_heads(cuda, hq, hkv, d, s, causal, z
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if zero:
         assert torch.count_nonzero(got[hq - zero:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 1024, 40, 64, 1, 128, 256),      # mamba2-2.7b's 80 heads over model 2,
+                                         # one row a data rank (chip_smoke 14)
+    (2, 1024, 20, 64, 1, 128, 256)])     # ... over model 4
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_scan_gradients_at_sharded_train_shapes(cuda, b, s, h, p, g, n,
+                                                         chunk, dtype):
+    """The scan under autograd at one rank's part of the sharded train
+    step: its block of SSD heads."""
+    test_cuda_ssd_scan_gradients_match_plain_autograd(cuda, b, s, h, p, g, n,
+                                                      chunk, dtype)

@@ -55,9 +55,9 @@ def test_port_imports_without_jax_or_reference():
     assert out.stdout.strip() == "ok"
 
 
-# the sharded training pieces wait for the multi-device layer (ROADMAP
-# Queue 1 item 13)
-NOT_YET = {"zero1_specs", "make_shardings"}
+# every public name is ported (the sharded training pieces since ROADMAP
+# Queue 1 item 13c)
+NOT_YET = set()
 
 
 @pytest.mark.parametrize("module", ["repro", "repro.core", "repro.data",
@@ -81,6 +81,7 @@ def test_launch_layer_imports_without_jax_or_reference():
             "sys.modules['repro'] = None\n"
             "import repro_torch.launch.mesh, repro_torch.launch.serve_step\n"
             "import repro_torch.launch.specs, repro_torch.launch.serve\n"
+            "import repro_torch.launch.pipeline, repro_torch.launch.train\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -89,15 +90,17 @@ def test_launch_layer_imports_without_jax_or_reference():
     assert out.stdout.strip() == "ok"
 
 
-# what of the reference's launch layer waits, by ROADMAP item: the train
-# cell and its microbatching (13c)
-LAUNCH_NOT_YET = {"build_train_cell": "13c", "microbatches_for": "13c"}
+# what of the reference's launch layer waits, by ROADMAP item: nothing of
+# these modules (the dry run, ``launch/dryrun.py``, is 13d)
+LAUNCH_NOT_YET = {}
 
 
 @pytest.mark.parametrize("module", ["repro.launch.mesh",
                                     "repro.launch.serve_step",
                                     "repro.launch.specs",
-                                    "repro.launch.serve"])
+                                    "repro.launch.serve",
+                                    "repro.launch.pipeline",
+                                    "repro.launch.train"])
 def test_port_exports_every_reference_launch_name(module):
     """Every public name a launch module of the reference defines (not the
     names it imports: ``jax``, ``P``, ...)."""

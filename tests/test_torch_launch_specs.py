@@ -4,7 +4,8 @@ reference's: ``param_pspecs`` for all 10 archs at model sizes 1, 2, 4 and
 dtypes, placements) for both decode shapes, bf16 and int8 pools, on the
 production layouts, the SSD state's three placements, and the prefill
 cell's ``seq_parallel`` rule, context, args and input placements for all
-10 archs at model sizes 1, 2, 4 and 16.  The reference reads only
+10 archs at model sizes 1, 2, 4 and 16 (the train cell's are in
+``test_torch_launch_specs_train.py``).  The reference reads only
 ``mesh.shape`` and ``mesh.axis_names`` in ``decode_struct``, so a stand-in
 mesh serves it; its prefill cell builds shardings, on an abstract mesh."""
 import functools
@@ -120,14 +121,14 @@ def test_decode_cell_args_and_placements(name):
 
 
 def test_build_cell_skips_what_does_not_apply_and_waits_for_13b_13c():
-    """Only the train cell still waits (13c); 13b's prefill cell and the
-    other kinds' decode cells build.  (The name is from when they waited
-    for 13b.)"""
+    """Every kind of cell builds: 13c's train cell, 13b's prefill cell and
+    the other kinds' decode cells.  (The name is from when they waited for
+    13b and 13c.)"""
     mesh = Mesh((16, 16), ("data", "model"))
     # pure full attention: the 500k decode working set is unbounded
     assert specs.build_cell("granite-3-8b", "long_500k", mesh) is None
-    with pytest.raises(NotImplementedError, match="13c"):
-        specs.build_cell("granite-3-8b", "train_4k", mesh)
+    assert specs.build_cell("granite-3-8b", "train_4k", mesh).meta["kind"] \
+        == "train"
     assert specs.build_cell("granite-3-8b", "prefill_32k", mesh).meta["kind"] \
         == "prefill"
     assert specs.build_cell("mamba2-2.7b", "decode_32k", mesh).meta["kind"] \
@@ -231,3 +232,4 @@ def test_prefill_cell_equals_reference(name, model_size):
         assert not ctx.seq_parallel
     if not cfg.n_heads or name == "whisper-large-v3":
         assert ctx.seq_parallel
+

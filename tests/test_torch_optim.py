@@ -191,3 +191,52 @@ def test_a_step_frees_its_inputs_without_the_garbage_collector():
         assert back is not None
     finally:
         gc.enable()
+
+
+ZERO1_CASES = [
+    # (param placement, shape, dp axes, dp size)
+    ((None, "model"), (8, 4), ("data",), 4),           # the first whole dim
+    ((None, "model"), (6, 4), ("data",), 4),           # 6 % 4: no dim left
+    ((None, None, "model"), (3, 8, 4), ("data",), 4),  # skips a dim of 3
+    (("model", None), (8, 16), ("pod", "data"), 32),   # 16 % 32: kept
+    (("model", None), (8, 64), ("pod", "data"), 32),   # a tuple entry
+    ((None,), (64,), ("data",), 16),                   # a 1-D leaf
+    ((None,), (0,), ("data",), 2),                     # an empty dim
+]
+
+
+@pytest.mark.parametrize("spec,shape,dp_axes,dp_size", ZERO1_CASES)
+def test_zero1_specs_match(spec, shape, dp_axes, dp_size):
+    """The moments' placements: the first dim the parameter's placement
+    leaves whole and the DP degree divides, cut over the batch axes."""
+    from jax.sharding import PartitionSpec as P
+    tree = {"a": [np.zeros(shape, np.float32)], "b": np.zeros((4,), np.float32)}
+    specs = {"a": [spec], "b": (None,)}
+    want = ref_optim.zero1_specs(
+        {"a": [P(*spec)], "b": P(None)}, tree, dp_axes, dp_size)
+    got = optim.zero1_specs(specs, tree, dp_axes, dp_size)
+    assert got == jax.tree.map(tuple, want, is_leaf=lambda s: isinstance(s, P))
+
+
+@pytest.mark.parametrize("zero1", [False, True])
+def test_update_sharded_on_one_rank_is_update(zero1):
+    """On a mesh of one rank every collective is the identity, so the
+    sharded update (``reduce_grads`` then ``update_sharded``) is ``update``
+    bit for bit, with ZeRO-1 placements or without."""
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1, 1), ("data", "model"), rank=0)
+    params = bridge.to_torch(tree(0), "cpu")
+    grads = bridge.to_torch(tree(1, scale=3.0), "cpu")
+    specs = bridge.tree_map(lambda a: (None,) * a.ndim, params)
+    mspecs = optim.zero1_specs(specs, params, ("data",), 1) if zero1 else specs
+    state = optim.init(params)
+    want_p, want_s, want_m = optim.update(optim.AdamWConfig(**CFG), params,
+                                          grads, state)
+    placed = dict(mesh=mesh, param_specs=specs, moment_specs=mspecs)
+    flat = optim.reduce_grads(bridge.tree_map(torch.clone, grads),
+                              batch_axes=("data",), **placed)
+    got_p, got_s, got_m = optim.update_sharded(optim.AdamWConfig(**CFG), params,
+                                               flat, state, **placed)
+    for a, b in zip(bridge.tree_flatten((want_p, want_s, want_m))[0],
+                    bridge.tree_flatten((got_p, got_s, got_m))[0]):
+        assert a.dtype == b.dtype and torch.equal(a, b)

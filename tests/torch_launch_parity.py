@@ -588,3 +588,273 @@ def run_serve_kinds(cases, workdir: Path):
     ref = run_reference(body, 4, workdir)
     spawn_ranks(serve_rank, 4, str(workdir), [(c, 0) for c in cases], False)
     return ref, [dict(np.load(rank_out(workdir, r))) for r in range(4)]
+
+
+# --------------------------------------------------------------------------
+# The sharded train step (``test_torch_launch_train*.py``)
+# --------------------------------------------------------------------------
+
+TRAIN_MESH = (2, 4)
+# (n_micro, global microbatch rows, S); the loss chunk and attention blocks
+# of the reduced configs
+TRAIN_BATCH = (2, 4, 32)
+TRAIN_CTX = dict(q_block=16, kv_block=16, loss_chunk=16)
+TRAIN_LR = 1e-3
+
+
+def train_inputs(cases, seed=0):
+    """Per case: tokens and labels (n_micro, mb, S), numpy-seeded, with
+    labels of -1 in data rank 0's rows only (so each data rank counts a
+    different number of labels)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for case in cases:
+        cfg = case_config(case)
+        toks = rng.integers(0, cfg.vocab, size=TRAIN_BATCH).astype(np.int32)
+        labels = rng.integers(0, cfg.vocab, size=TRAIN_BATCH).astype(np.int32)
+        rows = TRAIN_BATCH[1] // TRAIN_MESH[0]
+        labels[:, :rows, 3:21] = -1
+        out[f"{case['tag']}/tokens"], out[f"{case['tag']}/labels"] = toks, labels
+    return out
+
+
+# the reference's side: its make_train_step under jit with make_shardings'
+# placements on a 2x4 Auto mesh, f32 compute, one step from init
+TRAIN_REFERENCE = """
+from repro import optim
+from repro.models import transformer as T
+from repro.train import trainer
+from torch_launch_parity import case_config, TRAIN_CTX, TRAIN_LR
+
+inp = dict(np.load(IN))
+out = {}
+mesh = Mesh(np.array(jax.devices()).reshape(*MESH), ("data", "model"))
+for case in CASES:
+    tag, cfg = case["tag"], case_config(case, "repro")
+    ctx = T.ParallelCtx(mesh=mesh, dp_axes=("data",), remat=True,
+                        compute_dtype=jnp.float32, save_collectives=True,
+                        **TRAIN_CTX)
+    tcfg = trainer.TrainConfig(
+        microbatches=inp[f"{tag}/tokens"].shape[0], zero1=case["zero1"],
+        grad_dtype=jnp.bfloat16 if case.get("bf16_grads") else jnp.float32,
+        compute_dtype=jnp.float32,
+        adamw=optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    params = T.init_params(jax.random.PRNGKey(case.get("seed", 0)), cfg)
+    out.update(flatten(jax.tree.map(np.asarray, params), f"{tag}/params0"))
+    ins, outs = trainer.make_shardings(cfg, ctx, tcfg, params)
+    step = jax.jit(trainer.make_train_step(cfg, ctx, tcfg),
+                   in_shardings=ins, out_shardings=outs)
+    p, o, m = step(params, optim.init(params), inp[f"{tag}/tokens"],
+                   inp[f"{tag}/labels"])
+    out.update(flatten(jax.tree.map(np.asarray, p), f"{tag}/params"))
+    out.update(flatten(jax.tree.map(np.asarray, o.mu), f"{tag}/mu"))
+    out.update(flatten(jax.tree.map(np.asarray, o.nu), f"{tag}/nu"))
+    out[f"{tag}/loss"] = np.asarray(m["loss"])
+    out[f"{tag}/grad_norm"] = np.asarray(m["grad_norm"])
+np.savez(OUT, **out)
+"""
+
+
+def _no_unregistered_autograd():
+    """Make torch's warning about a collective without an autograd kernel
+    an error (a gradient through it would be silently wrong)."""
+    import warnings
+    warnings.filterwarnings("error", message=".*autograd kernel was not registered.*")
+
+
+def train_rank(rank, workdir, cases):
+    """One rank of the port's sharded train step for each case: the
+    reference's initial params and a fresh AdamW state cut to the rank's
+    shards (ZeRO-1 moments where the case says so), its rows of the batch,
+    one step.  A case with ``plain_remat`` also takes the step with
+    ``save_collectives`` off; the collective calls of each backward are
+    counted."""
+    import torch
+    from repro_torch import bridge, optim
+    from repro_torch.launch.mesh import local_block, make_local_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, make_shardings, make_train_step
+    _no_unregistered_autograd()
+    workdir = Path(workdir)
+    ref = dict(np.load(workdir / "reference_out.npz"))
+    inp = dict(np.load(workdir / "inputs.npz"))
+    mesh = make_local_mesh(*TRAIN_MESH)
+    out = {}
+    for case in cases:
+        tag, cfg = case["tag"], case_config(case)
+        tokens, labels = inp[f"{tag}/tokens"], inp[f"{tag}/labels"]
+        tcfg = TrainConfig(
+            microbatches=tokens.shape[0], zero1=case["zero1"],
+            grad_dtype=torch.bfloat16 if case.get("bf16_grads") else torch.float32,
+            compute_dtype=torch.float32,
+            adamw=optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+        params_np = unflatten(ref, f"{tag}/params0")
+        for save in (True, False) if case.get("plain_remat") else (True,):
+            ctx = T.ParallelCtx(mesh=mesh, remat=True, compute_dtype=torch.float32,
+                                save_collectives=save, **TRAIN_CTX)
+            (pspecs, ospecs, batch, _), _ = make_shardings(cfg, ctx, tcfg, params_np)
+            params = bridge.shard_to_torch(params_np, pspecs, mesh, device="cpu")
+            state = bridge.opt_state_shard_to_torch(
+                optim.init(bridge.to_torch(params_np, "cpu")), ospecs.mu, mesh,
+                device="cpu")
+            local = [torch.from_numpy(np.ascontiguousarray(local_block(a, batch, mesh)))
+                     for a in (tokens, labels)]
+            step = make_train_step(cfg, ctx, tcfg)
+            before = mesh.stats_total("backward")[0]
+            p, o, m = step(params, state, *local)
+            key = tag if save else f"{tag}/plain"
+            out[f"{key}/backward_calls"] = np.asarray(
+                mesh.stats_total("backward")[0] - before)
+            out.update(flatten(bridge.to_numpy(p), f"{key}/params"))
+            out.update(flatten(bridge.to_numpy(o.mu), f"{key}/mu"))
+            out.update(flatten(bridge.to_numpy(o.nu), f"{key}/nu"))
+            out[f"{key}/loss"] = m["loss"].numpy()
+            out[f"{key}/grad_norm"] = m["grad_norm"].numpy()
+    np.savez(rank_out(workdir, rank), **out)
+
+
+def run_train(cases, workdir: Path):
+    """The reference's sharded step and the port's on 8 gloo ranks (2x4)
+    for each case.  Returns (reference arrays, {key: the port's global
+    tree or value}) where key is ``tag`` or ``tag/plain``."""
+    from repro_torch import bridge
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, make_shardings
+    np.savez(workdir / "inputs.npz", **train_inputs(cases))
+    body = f"CASES = {cases!r}\nMESH = {TRAIN_MESH!r}\n" + TRAIN_REFERENCE
+    ref = run_reference(body, TRAIN_MESH[0] * TRAIN_MESH[1], workdir)
+    world = TRAIN_MESH[0] * TRAIN_MESH[1]
+    spawn_ranks(train_rank, world, str(workdir), cases)
+    ranks = [dict(np.load(rank_out(workdir, r))) for r in range(world)]
+    layout = Mesh(TRAIN_MESH, ("data", "model"))
+    got = {}
+    for case in cases:
+        cfg = case_config(case)
+        ctx = T.ParallelCtx(mesh=layout)
+        tcfg = TrainConfig(zero1=case["zero1"])
+        params_np = unflatten(ref, f"{case['tag']}/params0")
+        (pspecs, ospecs, _, _), _ = make_shardings(cfg, ctx, tcfg, params_np)
+        for key in (case["tag"], f"{case['tag']}/plain"):
+            if f"{key}/loss" not in ranks[0]:
+                continue
+            res = {name: [r[f"{key}/{name}"] for r in ranks]
+                   for name in ("loss", "grad_norm", "backward_calls")}
+            for name, specs in (("params", pspecs), ("mu", ospecs.mu),
+                                ("nu", ospecs.nu)):
+                res[name] = bridge.unshard_to_numpy(
+                    [unflatten(r, f"{key}/{name}") for r in ranks], specs, layout)
+            got[key] = res
+    return ref, got
+
+
+def check_train_step(runs, tag, rel, abs_tol):
+    """One case of ``run_train``: loss and grad norm equal on every rank and
+    within ``rel`` of the reference's, params and both moments within
+    ``abs_tol``."""
+    ref, got = runs
+    res = got[tag]
+    for name in ("loss", "grad_norm"):
+        vals = {float(v) for v in res[name]}
+        assert len(vals) == 1, f"{name} differs across ranks: {vals}"
+        want = float(ref[f"{tag}/{name}"])
+        assert abs(vals.pop() - want) <= rel * abs(want), (name, want)
+    for name in ("params", "mu", "nu"):
+        want = unflatten(ref, f"{tag}/{name}")
+        flat_w, flat_g = flatten(want, name), flatten(res[name], name)
+        assert flat_w.keys() == flat_g.keys()
+        for key, w in flat_w.items():
+            err = float(np.abs(flat_g[key] - w).max())
+            assert err <= abs_tol, (key, err)
+
+
+# --------------------------------------------------------------------------
+# The GPipe step (``test_torch_launch_pipeline.py``)
+# --------------------------------------------------------------------------
+
+PP_MESH = (2, 1, 2)                  # (pod, data, model)
+PP_SHAPE = dict(name="pp", seq_len=32, global_batch=4, kind="train")
+PP_MICRO = 2
+
+# the reference's side: its make_pp_train_step's placements and args (no
+# jit: jax 0.9's XLA aborts on the step), and its single-device
+# make_train_step with the pipeline's semantics (bf16, remat, the same
+# microbatches, AdamWConfig()) from the same params
+PP_REFERENCE = """
+from jax.sharding import PartitionSpec as P
+from repro import optim
+from repro.configs.base import ShapeConfig
+from repro.launch.pipeline import make_pp_train_step
+from repro.models import transformer as T
+from repro.train import trainer
+from torch_launch_parity import case_config
+
+inp = dict(np.load(IN))
+out = {}
+cfg = case_config(CASE, "repro")
+mesh = Mesh(np.array(jax.devices()).reshape(*MESH), ("pod", "data", "model"))
+_, args, ins = make_pp_train_step(cfg, ShapeConfig(**SHAPE), mesh, n_micro=MICRO)
+# leaves in jax.tree order (the port's tree_flatten order)
+out["ins"] = np.array(repr([tuple(s.spec) for s in jax.tree.leaves(
+    ins, is_leaf=lambda s: hasattr(s, "spec"))]))
+out["args"] = np.array(repr([(tuple(s.shape), str(s.dtype))
+                             for s in jax.tree.leaves(args)]))
+params = T.init_params(jax.random.PRNGKey(0), cfg)
+out.update(flatten(jax.tree.map(np.asarray, params), "params0"))
+ctx = T.ParallelCtx(remat=True, compute_dtype=jnp.bfloat16, loss_chunk=256)
+tcfg = trainer.TrainConfig(microbatches=MICRO, compute_dtype=jnp.bfloat16)
+step = jax.jit(trainer.make_train_step(cfg, ctx, tcfg))
+p, o, m = step(params, optim.init(params), inp["tokens"], inp["labels"])
+out.update(flatten(jax.tree.map(np.asarray, p), "params"))
+out["loss"], out["grad_norm"], out["lr"] = (np.asarray(m[k]) for k in
+                                            ("loss", "grad_norm", "lr"))
+np.savez(OUT, **out)
+"""
+
+
+def pp_rank(rank, workdir, case):
+    """One rank of the port's GPipe step: its stage's shards of the
+    reference's params (``pp_specs``), a fresh AdamW state, its rows of
+    the batch; one step.  Saves its shards, metrics and hop count."""
+    import torch
+    from repro_torch import bridge, optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import local_block, make_pod_mesh
+    from repro_torch.launch.pipeline import make_pp_train_step
+    _no_unregistered_autograd()
+    workdir = Path(workdir)
+    ref = dict(np.load(workdir / "reference_out.npz"))
+    inp = dict(np.load(workdir / "inputs.npz"))
+    mesh = make_pod_mesh(*PP_MESH)
+    cfg = case_config(case)
+    step, _, (specs, _, batch, _) = make_pp_train_step(
+        cfg, ShapeConfig(**PP_SHAPE), mesh, n_micro=PP_MICRO)
+    params_np = unflatten(ref, "params0")
+    params = bridge.shard_to_torch(params_np, specs, mesh, device="cpu")
+    state = bridge.opt_state_shard_to_torch(
+        optim.init(bridge.to_torch(params_np, "cpu")), specs, mesh, device="cpu")
+    local = [torch.from_numpy(np.ascontiguousarray(local_block(inp[k], batch, mesh)))
+             for k in ("tokens", "labels")]
+    p, _, m = step(params, state, *local)
+    out = flatten(bridge.to_numpy(p), "params")
+    out.update({k: m[k].numpy() for k in ("loss", "grad_norm", "lr")})
+    out["hops"] = np.asarray(sum(v[0] for (d, op), v in mesh.stats.items()
+                                 if op == "ring_shift"))
+    np.savez(rank_out(workdir, rank), **out)
+
+
+def run_pipeline(case, workdir: Path):
+    """(reference arrays, each rank's arrays) of one GPipe step."""
+    cfg = case_config(case)
+    rng = np.random.default_rng(3)
+    n_micro, b, s = PP_MICRO, PP_SHAPE["global_batch"], PP_SHAPE["seq_len"]
+    size = (n_micro, b // n_micro, s)
+    np.savez(workdir / "inputs.npz",
+             tokens=rng.integers(0, cfg.vocab, size=size).astype(np.int32),
+             labels=rng.integers(0, cfg.vocab, size=size).astype(np.int32))
+    body = (f"CASE = {case!r}\nMESH = {PP_MESH!r}\nSHAPE = {PP_SHAPE!r}\n"
+            f"MICRO = {PP_MICRO}\n" + PP_REFERENCE)
+    world = int(np.prod(PP_MESH))
+    ref = run_reference(body, world, workdir)
+    spawn_ranks(pp_rank, world, str(workdir), case)
+    return ref, [dict(np.load(rank_out(workdir, r))) for r in range(world)]
