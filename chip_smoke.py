@@ -11,18 +11,19 @@ two calls give the same bits and that a row of the paged kernel keeps its
 bits when the other rows of its batch change (phase 2), checks
 the port's CUDA path against its CPU path on reduced configs (phase 3), then
 drives the main paths through ``ValetServeEngine`` with and without
-KV-pool pressure: full-width granite-3-8b (20 of 40 layers, every policy;
+KV-pool pressure: full-width granite-3-8b (8 of 40 layers, every policy;
 phase 4), full-width gemma3-4b at 6 layers with prompts past its 1024-token
-window (phase 5), full-width hymba-1.5b (all 32 layers: paged, ring and SSD
-state together; phase 6) and full-width mamba2-2.7b (all 64 layers, SSD
-state only; phase 7), then serves granite-3-8b to three tenants that lease
+window (phase 5), full-width hymba-1.5b (8 of 32 layers, the three global
+ones among them: paged, ring and SSD state together; phase 6) and
+full-width mamba2-2.7b (16 of 64 layers, SSD state only; phase 7), then
+serves granite-3-8b to three tenants that lease
 their KV pools from one ``HostMemoryCoordinator`` and donate idle slots to
 each other, checking each tenant's tokens against its solo run and the
-coordinator's books (phase 8), serves full-width deepseek-moe-16b (12 of 28
-layers: 1 dense + 11 MoE) under pressure with every policy, after holding a
+coordinator's books (phase 8), serves full-width deepseek-moe-16b (6 of 28
+layers: 1 dense + 5 MoE) under pressure with every policy, after holding a
 MoE layer's decode rows bit-identical whatever the rest of the batch holds
 (phase 9), and runs full-width llama-3.2-vision-11b (10 of 40 layers, 6656
-patch tokens) and whisper-large-v3 (32 + 32 layers, 1536 frames) through
+patch tokens) and whisper-large-v3 (8 + 8 of 32 + 32 layers, 1536 frames) through
 prefill and decode, held against their full forward in f32, then in bf16
 (phase 10).  Phase 11 trains: ten steps of the port's ``make_train_step``
 (bf16 compute, two microbatches, remat, AdamW) on full-width granite-3-8b
@@ -35,15 +36,15 @@ entry at granite's and gemma3's global-layer decode shapes over pages split
 round-robin across 1, 2, 4 and 8 ranks, each rank's partials held against
 the plain version and all combined against one unsplit call (f32, bf16;
 int8 pools against the plain partials combined), then full-width
-granite-3-8b (8 of 40 layers) and gemma3-4b (6 of 34) in f32 on one rank
+granite-3-8b (4 of 40 layers) and gemma3-4b (6 of 34) in f32 on one rank
 (a 1x1 mesh over NCCL) held against ``models.decode``, and on four ranks
 (2x2) sharing the card over gloo, fed the one rank's tokens and held
 against its logits, with one migration step checked against the moved
 pages.  Phase 13 runs the sharded prefill cell (``launch/specs.py``: the
 sharded ``prefill_logits``, each rank's attention on the flash kernel and
 its SSD heads on the SSD kernel) and the serve step of the other kinds:
-full-width hymba-1.5b (6 of 32 layers), deepseek-moe-16b (4 of 28, EP over
-64 experts) and whisper-large-v3 (4 + 4 of 32 + 32, cross K/V over 1536
+full-width hymba-1.5b (4 of 32 layers), deepseek-moe-16b (2 of 28, EP over
+64 experts) and whisper-large-v3 (2 + 2 of 32 + 32, cross K/V over 1536
 frames), f32, on one rank (NCCL) held against the unsharded
 ``prefill_logits`` and ``models.decode`` (whisper's without the position
 ``models.decode`` adds to a decode token, which the reference's serve step
@@ -55,9 +56,17 @@ saved): full-width mamba2-2.7b (4 of 64 layers, each rank's SSD heads on
 the kernel under autograd) in f32 on one rank (NCCL) held against one
 device, on four gloo ranks sharing the card (2x2) held against one rank,
 then in bf16 for timing, and one step on 2x1 and on 1x2 held against one
-rank; the 2-stage GPipe step of full-width granite-3-8b (4 of 40 layers)
+rank; the 2-stage GPipe step of full-width granite-3-8b (2 of 40 layers)
 over two pod ranks held against one device's step; then every shape the
-phase gave the SSD kernel against its plain version.  Each main path runs with every kernel's launch count
+phase gave the SSD kernel against its plain version.  Phase 15 sets the
+meta-device dry run (``launch/dryrun.py``) beside the card: phase 14's
+one-rank train cell (``build_train_cell``, 1x1, bf16) timed for one step
+with CUDA events and its peak memory read, against the H100 roofline bound
+and the argument bytes of the same cell run on meta; then the port's
+``examples/policy_comparison_torch.py`` (every policy exact) and
+``examples/fault_tolerance_torch.py`` (the restore exact, no page lost)
+on the card, and every shape the phase gave a kernel against its plain
+version.  Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -307,7 +316,8 @@ def paged_inputs(b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, min_len=
     return q, kp, vp, torch.from_numpy(bt).to(dev), torch.from_numpy(lengths).to(dev)
 
 
-def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, **rows):
+def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, timed=True,
+               **rows):
     from repro_torch.kernels import paged_attention as pa
     q, kp, vp, btt, lt = paged_inputs(b, hq, hkv, d, page, max_len, q_dtype, kv_dtype,
                                       seed, **rows)
@@ -319,6 +329,9 @@ def paged_case(name, b, hq, hkv, d, page, max_len, q_dtype, kv_dtype, seed, **ro
     tol_dtype = torch.bfloat16 if torch.bfloat16 in (q_dtype, kv_dtype) else torch.float32
     assert_close(name, out, ref, tol_dtype)
     assert_repeatable(name, [out], [pa.paged_attention(q, kp, vp, btt, lt)])
+    if not timed:
+        log(f"  {name}: err {max_err(out, ref):.3e}")
+        return None
     # live tokens only: pages behind a -1 slot are never read
     live = sum(max(0, min(page, int(lengths[i]) - pi * page))
                for i in range(b) for pi in range(p) if bt[i, pi] >= 0)
@@ -885,13 +898,20 @@ def flash_drift(name, cfg, params, ctx, prompt):
         f"(top-1 {top1(lib)})")
 
 
+# Serving depths (phases 4 and 6-10), cut so that the whole run stays near
+# half of its 1200 s limit: a decode step's host work grows with the layers,
+# while the pool pressure is per page, so the preemptions are unchanged
+GRANITE_LAYERS = 8        # phases 4 and 8
+HYMBA_LAYERS = 8          # phase 6: layers 0, 3 and 7 global, the rest windowed
+MAMBA2_LAYERS = 16        # phase 7
+WHISPER_LAYERS = 8        # phase 10, encoder and decoder each
+
+
 def phase_granite():
     from repro_torch.configs import ARCHS, replace
     from repro_torch.models import transformer as T
-    # depth cut to 20 of 40 layers so that every main path fits the run's
-    # time; the pool pressure is per page, so the preemptions are unchanged
-    log("phase 4: full-width granite-3-8b at 20 of 40 layers, f32 KV pool")
-    cfg = replace(ARCHS["granite-3-8b"], n_layers=20)
+    log(f"phase 4: full-width granite-3-8b at {GRANITE_LAYERS} of 40 layers, f32 KV pool")
+    cfg = replace(ARCHS["granite-3-8b"], n_layers=GRANITE_LAYERS)
     rng = np.random.default_rng(0)
     lens = rng.choice([128, 256, 512], size=12)
     prompts = [rng.integers(2, cfg.vocab, size=int(n)) for n in lens]
@@ -983,10 +1003,10 @@ def abba_tail(slots, tag=""):
             (f"valet zero-restore again{t} ({slots} slots)", "valet", slots, True, True)]
 
 
-def bf16_model(name, seed):
-    from repro_torch.configs import ARCHS
+def bf16_model(name, seed, n_layers):
+    from repro_torch.configs import ARCHS, replace
     from repro_torch.models import transformer as T
-    cfg = ARCHS[name]
+    cfg = replace(ARCHS[name], n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = T.init_params(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
     n = sum(t.numel() for t in _leaves(params))
@@ -996,10 +1016,10 @@ def bf16_model(name, seed):
 
 
 def phase_hymba():
-    log("phase 6: full-width hymba-1.5b (32 layers: 3 global paged, 29 "
-        "sliding-window rings, SSD state in every layer), bf16, f32 KV pool, "
-        "prompts past the 1024 window")
-    cfg, params, ctx = bf16_model("hymba-1.5b", seed=2)
+    log(f"phase 6: full-width hymba-1.5b ({HYMBA_LAYERS} of 32 layers: 3 global paged, "
+        f"{HYMBA_LAYERS - 3} sliding-window rings, SSD state in every layer), bf16, f32 "
+        "KV pool, prompts past the 1024 window")
+    cfg, params, ctx = bf16_model("hymba-1.5b", seed=2, n_layers=HYMBA_LAYERS)
     rng = np.random.default_rng(2)
     # 1100-1300 tokens, none a multiple of the 256-step chunk
     lens = [int(n + (n % 256 == 0)) for n in rng.integers(1100, 1301, size=12)]
@@ -1064,9 +1084,9 @@ def blob_cost(name, cfg, params, ctx, prompt, reps=5):
 
 
 def phase_mamba2():
-    log("phase 7: full-width mamba2-2.7b (64 layers, SSD state only, no paged "
-        "layer), bf16")
-    cfg, params, ctx = bf16_model("mamba2-2.7b", seed=3)
+    log(f"phase 7: full-width mamba2-2.7b ({MAMBA2_LAYERS} of 64 layers, SSD state only, "
+        "no paged layer), bf16")
+    cfg, params, ctx = bf16_model("mamba2-2.7b", seed=3, n_layers=MAMBA2_LAYERS)
     rng = np.random.default_rng(3)
     lens = [int(n) for n in rng.choice([300, 700, 1000], size=12)]
     prompts = [rng.integers(2, cfg.vocab, size=n) for n in lens]
@@ -1185,10 +1205,10 @@ def serve_tenants(cfg, params, ctx, prompts, *, slab, weights=None):
 def phase_tenants():
     from repro_torch.configs import ARCHS, replace
     from repro_torch.models import transformer as T
-    log("phase 8: multi-tenant serving, full-width granite-3-8b at 20 of 40 layers, "
-        "bf16, f32 KV pool: three valet zero-restore engines leasing KV pages "
+    log(f"phase 8: multi-tenant serving, full-width granite-3-8b at {GRANITE_LAYERS} of 40 "
+        "layers, bf16, f32 KV pool: three valet zero-restore engines leasing KV pages "
         "from one HostMemoryCoordinator, stepped round-robin")
-    cfg = replace(ARCHS["granite-3-8b"], n_layers=20)
+    cfg = replace(ARCHS["granite-3-8b"], n_layers=GRANITE_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
     ctx = T.ParallelCtx(remat=False, compute_dtype=torch.bfloat16)
@@ -1291,7 +1311,7 @@ def tenant_books(coord, engines):
 # Phase 9: deepseek-moe-16b served under pressure
 # --------------------------------------------------------------------------
 
-MOE_LAYERS = 12           # 1 dense + 11 MoE layers of 28, full width
+MOE_LAYERS = 6            # 1 dense + 5 MoE layers of 28, full width
 
 
 def moe_row_check(cfg, params):
@@ -1518,8 +1538,10 @@ def phase_cross():
         f"through models.decode, batch {CROSS_BATCH}, f32 pools")
     cross_arch("llama-3.2-vision-11b", replace(ARCHS["llama-3.2-vision-11b"], n_layers=10),
                seed=6, what="10 of 40 layers (2 x [4 attn + 1 xattn]), 6656 patch tokens")
-    cross_arch("whisper-large-v3", ARCHS["whisper-large-v3"], seed=7,
-               what="all 32 encoder + 32 decoder layers, 1536 frames")
+    cross_arch("whisper-large-v3", replace(ARCHS["whisper-large-v3"], n_layers=WHISPER_LAYERS,
+                                           encoder_layers=WHISPER_LAYERS), seed=7,
+               what=f"{WHISPER_LAYERS} of 32 encoder + {WHISPER_LAYERS} of 32 decoder "
+                    "layers, 1536 frames")
 
 
 # --------------------------------------------------------------------------
@@ -1863,11 +1885,11 @@ def phase_training():
 # Phase 12: the sharded serve step
 # --------------------------------------------------------------------------
 
-# Full-width granite-3-8b at 8 of 40 layers and gemma3-4b at 6 of 34 (5
+# Full-width granite-3-8b at 4 of 40 layers and gemma3-4b at 6 of 34 (5
 # local + 1 global), f32, batch 8: each row is fed a prompt of 64-128
 # tokens one token per step, then its own argmax for SHARD_NEW steps (rows
 # with shorter prompts generate more, as the batch steps together).
-SHARD_ARCHS = (("granite-3-8b", 8, 2), ("gemma3-4b", 6, 3))   # name, layers, seed
+SHARD_ARCHS = (("granite-3-8b", 4, 2), ("gemma3-4b", 6, 3))   # name, layers, seed
 SHARD_BATCH, SHARD_NEW, SHARD_PAGE = 8, 32, 16
 SHARD_PROMPTS = (64, 128)   # cut from 64-256 to fit the phase's 120 s
 SHARD_TOL = 1e-4            # of the largest logit of (b)'s step (real vocab)
@@ -2291,10 +2313,11 @@ def shard_arch(name, n_layers, seed):
 
 
 def phase_sharded():
+    from repro_torch.configs import ARCHS
     log("phase 12: the sharded serve step (launch/serve_step.py): the partial entry "
-        "of the paged kernel, then full-width granite-3-8b (8 of 40 layers) and "
-        "gemma3-4b (6 of 34) on one rank (NCCL) and on four ranks sharing the card "
-        "(gloo), f32")
+        "of the paged kernel, then full-width "
+        + " and ".join(f"{n} ({k} of {ARCHS[n].n_layers} layers)" for n, k, _ in SHARD_ARCHS)
+        + " on one rank (NCCL) and on four ranks sharing the card (gloo), f32")
     with off_path():
         rec = None
         for shape, batches, kvrs in PARTIAL_SHAPES:
@@ -2316,13 +2339,14 @@ def phase_sharded():
 # Phase 13: the sharded prefill cell and the serve step of the other kinds
 # --------------------------------------------------------------------------
 
-# Full width, f32, depth cut to fit the phase's ~120 s: hymba-1.5b at 6 of
-# 32 layers (3 global + 3 sliding-window: SSD heads, paged partials, rings),
-# deepseek-moe-16b at 4 of 28 (1 dense + 3 MoE layers; EP over 64 experts),
-# whisper-large-v3 at 4 + 4 of 32 + 32 (cross K/V over 1536 frames)
-KINDS_ARCHS = (("hymba-1.5b", dict(n_layers=6), 41),
-               ("deepseek-moe-16b", dict(n_layers=4), 42),
-               ("whisper-large-v3", dict(n_layers=4, encoder_layers=4), 43))
+# Full width, f32, depth cut so that the whole run stays near half of its
+# limit: hymba-1.5b at 4 of 32 layers (3 global + 1 sliding-window: SSD
+# heads, paged partials, rings), deepseek-moe-16b at 2 of 28 (1 dense + 1
+# MoE layer; EP over 64 experts), whisper-large-v3 at 2 + 2 of 32 + 32
+# (cross K/V over 1536 frames)
+KINDS_ARCHS = (("hymba-1.5b", dict(n_layers=4), 41),
+               ("deepseek-moe-16b", dict(n_layers=2), 42),
+               ("whisper-large-v3", dict(n_layers=2, encoder_layers=2), 43))
 KINDS_PREFILL = (2, 509)     # the prefill cell's batch (one row a data rank)
                              # and prompt (S % 2 != 0 under seq_parallel)
 KINDS_PROMPTS = (16, 32)     # the serve step's prompts, fed one per step,
@@ -2397,13 +2421,13 @@ def rel_err(got, want, vocab):
 @contextlib.contextmanager
 def shapes_seen():
     """Note the shapes of every call the model makes of the three kernels'
-    wrappers, at their call sites (``kernels.ops`` for flash and SSD, the
-    serve step for the partial entry): yields {kernel: set of keys}, the
-    keys ``hold_seen`` takes."""
+    wrappers, at their call sites (``kernels.ops`` for flash, paged and
+    SSD, the serve step for the partial entry): yields {kernel: set of
+    keys}, the keys ``hold_seen`` takes."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_step as SS
-    seen = {"flash": set(), "ssd": set(), "paged_partials": set()}
-    flash, ssd, partials = ops._flash, ops._ssd, SS.paged_attention_partials
+    seen = {"flash": set(), "ssd": set(), "paged_partials": set(), "paged": set()}
+    flash, ssd, partials, paged = ops._flash, ops._ssd, SS.paged_attention_partials, ops._paged
     name = lambda t: str(t.dtype)[6:]  # noqa: E731
 
     def flash_(q, k, v, *, causal=True, window=0):
@@ -2420,19 +2444,26 @@ def shapes_seen():
         seen["paged_partials"].add((b, hq, hkv, d, bt.shape[1], kw["kvr"], name(q), name(kp)))
         return partials(q, kp, vp, bt, lengths, **kw)
 
-    ops._flash, ops._ssd, SS.paged_attention_partials = flash_, ssd_, partials_
+    def paged_(q, kp, vp, bt, lengths):
+        (b, hq, d), (page, hkv) = q.shape, kp.shape[1:3]
+        seen["paged"].add((b, hq, hkv, d, page, bt.shape[1], name(q), name(kp)))
+        return paged(q, kp, vp, bt, lengths)
+
+    ops._flash, ops._ssd, SS.paged_attention_partials, ops._paged = \
+        flash_, ssd_, partials_, paged_
     try:
         yield seen
     finally:
-        ops._flash, ops._ssd, SS.paged_attention_partials = flash, ssd, partials
+        ops._flash, ops._ssd, SS.paged_attention_partials, ops._paged = \
+            flash, ssd, partials, paged
 
 
 def hold_seen(seen, phase, need):
     """Every shape ``shapes_seen`` noted on a phase's path, on fresh seeded
-    inputs: the flash and SSD kernels against their plain versions, the
-    partial entry's partials against its plain version and combined over
-    the ranks against one unsplit call (``partial_case``).  Fails if a
-    kernel in ``need`` was seen at no shape."""
+    inputs: the flash, paged and SSD kernels against their plain versions,
+    the partial entry's partials against its plain version and combined
+    over the ranks against one unsplit call (``partial_case``).  Fails if
+    a kernel in ``need`` was seen at no shape."""
     for key in need:
         if not seen[key]:
             fail(f"phase {phase}: no {key} call was seen at the model's call sites")
@@ -2444,6 +2475,10 @@ def hold_seen(seen, phase, need):
     for i, (b, s, h, p, g, n, chunk, dt) in enumerate(sorted(seen["ssd"])):
         ssd_case(f"ssd B{b} S{s} H{h} P{p} G{g} N{n} chunk{chunk} {dt}", b, s, h, p, g, n,
                  chunk, getattr(torch, dt), seed=80 + i, timed=False)
+    for i, (b, hq, hkv, d, page, n_pages, qd, pool) in enumerate(sorted(seen["paged"])):
+        paged_case(f"paged B{b} Hq{hq} Hkv{hkv} D{d} page{page} pages{n_pages} {qd} q "
+                   f"{pool} pool", b, hq, hkv, d, page, n_pages * page, getattr(torch, qd),
+                   getattr(torch, pool), seed=90 + i, timed=False, n_pages=n_pages)
     for b, hq, hkv, d, p_loc, kvr, qd, pool in sorted(seen["paged_partials"]):
         if pool not in ("int8", qd):
             fail(f"phase {phase}: no partial case builds a {pool} pool under {qd} q")
@@ -2608,10 +2643,13 @@ def kinds_arch(name, over, seed, seen):
 
 
 def phase_kinds():
+    from repro_torch.configs import ARCHS
     log("phase 13: the sharded prefill cell and serve step of the other kinds: "
-        "hymba-1.5b (6 of 32 layers), deepseek-moe-16b (4 of 28), whisper-large-v3 "
-        "(4 + 4 of 32 + 32), f32, on one rank (NCCL) and four sharing the card (gloo); "
-        "then every shape the path gave a kernel against its plain version")
+        + ", ".join(f"{n} ({over['n_layers']} of {ARCHS[n].n_layers} layers)"
+                    for n, over, _ in KINDS_ARCHS)
+        + " (whisper's encoder as deep as its decoder), f32, on one rank (NCCL) and "
+        "four sharing the card (gloo); then every shape the path gave a kernel against "
+        "its plain version")
     with shapes_seen() as seen:
         for name, over, seed in KINDS_ARCHS:
             kinds_arch(name, over, seed, seen)
@@ -2647,9 +2685,9 @@ SHTRAIN_ABS = 1e-4                           # params, absolute
 # at most ~lr, so the parameter limit fails only where most of an entry's
 # steps were reversed; the moments hold the gradients of every step
 SHTRAIN_LR = 3e-5
-# (c) GPipe: full-width granite-3-8b at 4 of 40 layers (2 a stage), bf16,
+# (c) GPipe: full-width granite-3-8b at 2 of 40 layers (1 a stage), bf16,
 # PP_MICRO microbatches of one row of PP_SEQ tokens
-PP_ARCH = ("granite-3-8b", 4, 15)
+PP_ARCH = ("granite-3-8b", 2, 15)
 PP_MICRO, PP_SEQ = 4, 1024
 PP_REL = 2e-2
 
@@ -3106,7 +3144,7 @@ def phase_sharded_training():
     torch.cuda.empty_cache()
     res = run_ranks(_pp_rank, (name, n_layers, seed, data, ref[:2]), name, world=2)
     gap = max(r["gap"] for r in res)
-    log(f"  (c) GPipe {name} ({n_layers} of 40 layers, 2 a stage), {PP_MICRO} "
+    log(f"  (c) GPipe {name} ({n_layers} of 40 layers, {n_layers // 2} a stage), {PP_MICRO} "
         f"microbatches of 1 x {PP_SEQ}, bf16, pod 2 (gloo, one card): loss "
         f"{res[0]['loss']:.6f} grad norm {res[0]['norm']:.6f} against one device's "
         f"{ref[0]:.6f} {ref[1]:.6f} (largest gap {gap:.3e}, limit {PP_REL}); step wall "
@@ -3124,6 +3162,130 @@ def phase_sharded_training():
         hold_seen(seen, 14, ("ssd",))
 
 
+# phase 15: the dry run's roofline beside the card, and the port's examples
+ROOFLINE_WARM = 1            # steps before the timed one
+
+
+def example_module(name):
+    """``examples/<name>.py`` of this checkout, imported by path."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def roofline_beside_card():
+    """Phase 14's one-rank train cell (``build_train_cell`` on a 1x1 mesh:
+    bf16 compute, remat, ZeRO-1, loss chunks of 256) on the card, one warm
+    step then one timed with CUDA events and the peak allocated across it;
+    then ``analyze_cell`` on the same cell on meta.  The peak is read
+    above what the card held before the cell's tensors were made (what
+    earlier phases left allocated).  Returns the record."""
+    from repro_torch import optim
+    from repro_torch.configs import ARCHS, replace
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import RooflineTerms
+    name, n_layers, seed = SHTRAIN_ARCH
+    cfg = replace(ARCHS[name], n_layers=n_layers)
+    shape = ShapeConfig("phase14", seq_len=SHTRAIN_SEQ, global_batch=SHTRAIN_BATCH,
+                        kind="train")
+    axes = ("data", "model")
+    cell = specs.build_train_cell(cfg, shape, Mesh((1, 1), axes, rank=0))
+    nm = cell.meta["microbatches"]
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, device="cuda")
+    state = optim.init(params)
+    rng = np.random.default_rng(seed)
+    toks, labels = (torch.as_tensor(rng.integers(0, cfg.vocab, (nm, SHTRAIN_BATCH // nm,
+                                                                 SHTRAIN_SEQ)),
+                                    dtype=torch.int32, device="cuda") for _ in range(2))
+    for _ in range(ROOFLINE_WARM):
+        params, state, m = cell.fn(params, state, toks, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, state, m = cell.fn(params, state, toks, labels)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = start.elapsed_time(end) / 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    loss = float(m["loss"])
+    del params, state, m
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = Mesh((1, 1), axes, rank=0, dry=True)
+    rec = dryrun.analyze_cell(specs.build_train_cell(cfg, shape, dry), dry)
+    analysis_s = time.perf_counter() - t0
+    r = rec["roofline"]
+    terms = RooflineTerms(r["flops_per_chip"], r["hbm_bytes_per_chip"],
+                          r["collective_bytes_per_chip"], r["model_flops_per_chip"])
+    arg_b = rec["memory"]["argument_bytes"]
+    log(f"  (a) {name} ({n_layers} of 64 layers) train cell, {nm} microbatches of "
+        f"{SHTRAIN_BATCH // nm} x {SHTRAIN_SEQ}, bf16 compute, 1x1: loss {loss:.6f}; "
+        f"dry run on meta in {analysis_s:.1f} s: {r['flops_per_chip'] / 1e12:.3f} TFLOP "
+        f"counted (model {r['model_flops_per_chip'] / 1e12:.3f}), "
+        f"{r['hbm_bytes_per_chip'] / 1e9:.3f} GB HBM (analytic); bound "
+        f"{1e3 * terms.bound_time:.3f} ms ({terms.bottleneck}: compute "
+        f"{1e3 * terms.t_compute:.3f}, memory {1e3 * terms.t_memory:.3f} ms); "
+        f"measured step {1e3 * wall_s:.3f} ms (CUDA events, after {ROOFLINE_WARM} warm): "
+        f"roofline share {terms.bound_time / wall_s:.4f}; argument bytes {arg_b} "
+        f"({arg_b / 1e9:.3f} GB) beside the measured peak {peak} ({peak / 1e9:.3f} GB, "
+        f"above the {held / 1e9:.3f} GB held before the cell)")
+    if not np.isfinite(loss):
+        fail(f"phase 15: the train cell's loss is {loss}")
+    if arg_b > peak:
+        fail(f"phase 15: the dry run's argument bytes {arg_b} exceed the measured peak {peak}")
+    return dict(bound_ms=1e3 * terms.bound_time, wall_ms=1e3 * wall_s, peak=peak,
+                argument_bytes=arg_b, analysis_s=analysis_s)
+
+
+def examples_on_card():
+    """``examples/policy_comparison_torch.py`` (reduced granite-3-8b, every
+    policy must be exact) and ``examples/fault_tolerance_torch.py`` (reduced
+    phi3-mini: the restore exact, no page lost), each on its seed-0 weights
+    on the card."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import transformer as T
+    for name, arch in (("policy_comparison_torch", "granite-3-8b"),
+                       ("fault_tolerance_torch", "phi3-mini-3.8b")):
+        cfg = reduced(ARCHS[arch])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_params(cfg, generator=gen, device="cuda")
+        t0 = time.perf_counter()
+        res = example_module(name).run(params, cfg, "cuda")
+        wall = time.perf_counter() - t0
+        if name == "policy_comparison_torch":
+            exact = {p: outs == res["valet"][0] for p, (outs, _) in res.items()}
+            log(f"  (b) {name}: exact {exact}, {wall:.1f} s")
+            if not all(exact.values()):
+                fail(f"phase 15: {name}: a policy's tokens differ ({exact})")
+        else:
+            log(f"  (b) {name}: restore exact {res['exact']} (step {res['restore_step']}), "
+                f"{res['recovered']} pages recovered, {res['lost']} lost, {wall:.1f} s")
+            if not res["exact"] or res["lost"] or res["restore_step"] != 20:
+                fail(f"phase 15: {name}: restore exact {res['exact']}, step "
+                     f"{res['restore_step']}, {res['lost']} pages lost")
+
+
+def phase_dryrun():
+    log("phase 15: the meta-device dry run's roofline beside the card (phase 14's "
+        "one-rank train cell) and the port's last two examples on the card, then every "
+        "shape the phase gave a kernel against its plain version")
+    with shapes_seen() as seen:
+        rec = roofline_beside_card()
+        examples_on_card()
+    with off_path():
+        hold_seen(seen, 15, ("paged", "flash", "ssd"))
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3139,7 +3301,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -3221,7 +3383,13 @@ def main():
                   # kernel under autograd; the ranks' launches come back
                   # from them (the GPipe step is granite's: no kernel)
                   (14, "sharded training mamba2-2.7b and GPipe granite-3-8b",
-                   phase_sharded_training, ("ssd",))]
+                   phase_sharded_training, ("ssd",)),
+                  # the train cell beside its dry run launches the SSD scan;
+                  # the policy comparison's engines prefill through flash
+                  # and decode through paged (the dry run itself runs the
+                  # plain versions on meta tensors)
+                  (15, "dry-run roofline mamba2-2.7b and the examples", phase_dryrun,
+                   ("paged", "flash", "ssd"))]
     path_recs = {}
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:

@@ -23,18 +23,15 @@ from repro_torch.serve import ValetServeEngine
 from repro_torch.train import TrainConfig, fit
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    device = ap.parse_args().device
-    cfg = reduced(ARCHS["gemma3-4b"])          # tiny same-family config
+def run(params, cfg, device):
+    """Train ``params`` (a reduced gemma3's), then serve with and without
+    pool pressure; returns (history, tokens unpressured, tokens under
+    pressure, the pressured run's EngineStats)."""
     print(f"arch={cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
           f"vocab={cfg.vocab} device={device}")
 
     ctx = T.ParallelCtx(remat=False, q_block=16, kv_block=16, loss_chunk=16,
                         compute_dtype=torch.float32)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = T.init_params(cfg, generator=gen, device=device)
 
     # -- train ---------------------------------------------------------------
     tcfg = TrainConfig(microbatches=2, compute_dtype=torch.float32,
@@ -67,6 +64,16 @@ def main():
     print("outputs identical under pressure:", full == tight)
     for i, toks in enumerate(tight):
         print(f"  req{i}: {toks}")
+    return hist, full, tight, stats
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    device = ap.parse_args().device
+    cfg = reduced(ARCHS["gemma3-4b"])          # tiny same-family config
+    gen = torch.Generator(device=device).manual_seed(0)
+    run(T.init_params(cfg, generator=gen, device=device), cfg, device)
 
 
 if __name__ == "__main__":

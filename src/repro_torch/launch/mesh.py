@@ -41,6 +41,12 @@ backward apart), and inside ``Mesh.taped`` the forward transports are
 recorded, then replayed when a checkpointed region is recomputed
 (``ParallelCtx.save_collectives``).
 
+A dry mesh (``dry=True``) stands for one rank of a mesh and moves
+nothing: it builds no process group, and its transports return empty
+tensors of the real output's shape and dtype on the input's device (the
+meta device in the dry run, ``launch/dryrun.py``), counted in ``stats``
+as any mesh's are.
+
 Mesh builders are functions, so importing this module touches no process
 group.
 """
@@ -70,29 +76,35 @@ class Mesh:
     this rank's ``coords``, and a process group per set of axes.
 
     A mesh over no process group (``rank`` None) is a layout: it answers
-    questions of shape (``launch/specs.py``), and its collectives raise."""
+    questions of shape (``launch/specs.py``), and its collectives raise.  A
+    dry mesh is rank ``rank`` of the mesh without a process group: its
+    transports move nothing and return the outputs' shapes (see the module
+    docstring)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None, dry: bool = False):
         if len(shape) != len(axis_names):
             raise ValueError(f"shape {tuple(shape)} and axes {tuple(axis_names)}")
         self.axis_names: Tuple[str, ...] = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, map(int, shape)))
         self.size = int(np.prod(shape))
         self.rank = rank
+        self.dry = dry
         self.coords: Dict[str, int] = {}
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._ranks: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
-        # (direction, op) -> [calls, host ms inside them]
+        # (direction, op) -> [calls, host ms inside them, output bytes]
         self.stats: Dict[Tuple[str, str], list] = {}
         self._tape: Optional[Tape] = None
         if rank is None:
+            if dry:
+                raise ValueError("a dry mesh stands for one rank: give it")
             return
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a mesh of {self.size}")
         self.coords = dict(zip(self.axis_names,
                                map(int, np.unravel_index(rank, tuple(shape)))))
-        if self.size == 1:
+        if self.size == 1 or dry:
             return
         grid = np.arange(self.size).reshape(tuple(shape))
         # new_group is collective over the world: every rank makes every
@@ -112,7 +124,7 @@ class Mesh:
 
     @property
     def backend(self) -> Optional[str]:
-        return dist.get_backend() if self.size > 1 else None
+        return dist.get_backend() if self.size > 1 and not self.dry else None
 
     def _axes(self, axes: Axes) -> Tuple[str, ...]:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -186,22 +198,34 @@ class Mesh:
     # ---- transports, counted and taped -------------------------------------
 
     def _move(self, op, fn, *args):
-        """``fn(*args)``, one transport, counted in ``stats``; inside
-        ``taped`` a forward transport is recorded, or replayed in the
-        recompute of a checkpointed region."""
+        """``fn(*args)``, one transport (on a dry mesh its output's shape
+        only), counted in ``stats``; inside ``taped`` a forward transport
+        is recorded, or replayed in the recompute of a checkpointed
+        region."""
         tape = self._tape          # set only while a region's forward runs
         if tape is not None and tape.replaying:
             return tape.replay()
         # a checkpointed region's recompute runs inside the backward
         direction = "backward" if _in_backward() else "forward"
         t0 = time.perf_counter()
-        out = fn(*args)
-        calls_ms = self.stats.setdefault((direction, op), [0, 0.0])
-        calls_ms[0] += 1
-        calls_ms[1] += 1e3 * (time.perf_counter() - t0)
+        out = self._dry_move(op, *args) if self.dry else fn(*args)
+        row = self.stats.setdefault((direction, op), [0, 0.0, 0])
+        row[0] += 1
+        row[1] += 1e3 * (time.perf_counter() - t0)
+        row[2] += out.numel() * out.element_size()
         if tape is not None:
             tape.record(out)
         return out
+
+    def _dry_move(self, op, x, axes, arg):
+        """What a transport returns, without its values: an all-gather's
+        ``axis_size`` blocks along ``dim`` (``arg``), an all-reduce's input
+        (reduced in place), a ring shift's received tensor."""
+        if op == "all_gather":
+            shape = list(x.shape)
+            shape[arg] *= self.axis_size(axes)
+            return x.new_empty(shape)
+        return x if op == "all_reduce" else torch.empty_like(x.contiguous())
 
     def _reduce(self, x, axes, op):
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]

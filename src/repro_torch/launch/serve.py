@@ -5,8 +5,12 @@ unless ``--device cpu``.
         --local --requests 8 --policy valet --pool-slots 16
 
 ``--local`` serves the reduced config.  The weights are random, made from
-``--seed``.  (The reference's ``--dryrun`` waits for the meta-device dry
-run, ROADMAP item 13d.)
+seed 0 as the reference's ``PRNGKey(0)``, and the prompts are drawn from
+``default_rng(0)``.
+
+``--dryrun`` runs the sharded serve step of ``--shape`` for one rank of
+the production mesh on the meta device (``launch/dryrun.py``) and writes
+its record under ``build/dryrun/single/``; it allocates on no device.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ import argparse
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--local", action="store_true")
+    ap.add_argument("--dryrun", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -24,9 +30,16 @@ def main(argv=None):
     ap.add_argument("--pool-slots", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--page", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+
+    if args.dryrun:
+        from repro_torch.launch.dryrun import _artifact_dir, run_cell
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh()
+        rec = run_cell(args.arch, args.shape, "single", mesh, _artifact_dir(),
+                       force=True)
+        return 0 if rec.get("status") == "ok" else 1
 
     import numpy as np
     import torch
@@ -37,14 +50,14 @@ def main(argv=None):
 
     cfg = reduced(get_arch(args.arch)) if args.local else get_arch(args.arch)
     ctx = T.ParallelCtx(remat=False, q_block=16, kv_block=16)
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    gen = torch.Generator(device=args.device).manual_seed(0)
     params = T.init_params(cfg, generator=gen, device=args.device)
     eng = ValetServeEngine(
         params, cfg, ctx, max_batch=args.max_batch,
         max_seq=args.prompt_len + args.max_new + args.page,
         page=args.page, pool_slots=args.pool_slots,
         policy=POLICIES[args.policy], device=args.device)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(0)
     for _ in range(args.requests):
         eng.submit(rng.integers(2, cfg.vocab, size=args.prompt_len),
                    args.max_new)

@@ -6,8 +6,8 @@ The decode cell is the sharded serve step (``launch/serve_step.py``), the
 prefill cell the sharded ``prefill_logits`` (``models/transformer.py``)
 with each rank's attention on the flash kernel's op, the train cell the
 sharded ``make_train_step`` (``train/trainer.py``: remat with the
-collectives saved, bf16 compute, ZeRO-1).  The meta-device dry run that
-sweeps the cells waits for ROADMAP item 13d.
+collectives saved, bf16 compute, ZeRO-1).  The meta-device dry run
+(``launch/dryrun.py``) runs one rank's cell on its blocks of the args.
 """
 from __future__ import annotations
 

@@ -8,8 +8,12 @@
 seed 0 as the reference's ``PRNGKey(0)``, and the data is ``TrainDataset``'s
 deterministic stream.  Checkpoints go through ``ValetCheckpointer`` (every
 50 steps and at the end) into ``--ckpt-dir``, a fresh temporary directory
-unless given.  The reference's ``--dryrun`` waits for the meta-device dry
-run, ROADMAP item 13d.
+unless given.  The history holds every tenth step and the last.
+
+``--dryrun`` runs the full config's ``train_4k`` step (every microbatch,
+the backward and the AdamW update) for one rank of the 16x16 mesh on the
+meta device (``launch/dryrun.py``) and writes its record under
+``build/dryrun/single/``; it allocates on no device, and takes minutes.
 """
 from __future__ import annotations
 
@@ -25,14 +29,20 @@ def main(argv=None):
     ap.add_argument("--local", action="store_true",
                     help="the reduced config")
     ap.add_argument("--dryrun", action="store_true",
-                    help="the full config's cells on the production mesh")
+                    help="the full config's train cell on the production "
+                         "mesh, on the meta device")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.dryrun:
-        raise NotImplementedError("the meta-device dry run is ROADMAP item 13d")
+        from repro_torch.launch.dryrun import _artifact_dir, run_cell
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh()
+        rec = run_cell(args.arch, "train_4k", "single", mesh, _artifact_dir(),
+                       force=True)
+        return 0 if rec.get("status") == "ok" else 1
 
     import tempfile
 
@@ -46,8 +56,7 @@ def main(argv=None):
     cfg = reduced(get_arch(args.arch)) if args.local else get_arch(args.arch)
     ctx = T.ParallelCtx(remat=False, q_block=32, kv_block=32, loss_chunk=32,
                         compute_dtype=torch.float32)
-    # the reference's warmup of 10 steps, cut to a fifth of a short run
-    adamw = optim.AdamWConfig(lr=args.lr, warmup_steps=min(10, args.steps // 5),
+    adamw = optim.AdamWConfig(lr=args.lr, warmup_steps=10,
                               total_steps=args.steps)
     tcfg = TrainConfig(microbatches=args.microbatches,
                        compute_dtype=torch.float32, adamw=adamw)
@@ -62,8 +71,7 @@ def main(argv=None):
             ckpt.save(step, {"params": params, "opt": opt_state})
 
     params, opt_state, hist = fit(params, cfg, ctx, tcfg, ds,
-                                  n_steps=args.steps, log_every=1,
-                                  callback=cb)
+                                  n_steps=args.steps, callback=cb)
     ckpt.save(args.steps, {"params": params, "opt": opt_state})
     ckpt.close()
     for h in hist:

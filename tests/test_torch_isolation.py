@@ -82,6 +82,7 @@ def test_launch_layer_imports_without_jax_or_reference():
             "import repro_torch.launch.mesh, repro_torch.launch.serve_step\n"
             "import repro_torch.launch.specs, repro_torch.launch.serve\n"
             "import repro_torch.launch.pipeline, repro_torch.launch.train\n"
+            "import repro_torch.launch.dryrun, repro_torch.roofline\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -90,8 +91,7 @@ def test_launch_layer_imports_without_jax_or_reference():
     assert out.stdout.strip() == "ok"
 
 
-# what of the reference's launch layer waits, by ROADMAP item: nothing of
-# these modules (the dry run, ``launch/dryrun.py``, is 13d)
+# what of the reference's launch layer waits, by ROADMAP item: nothing
 LAUNCH_NOT_YET = {}
 
 
@@ -112,4 +112,26 @@ def test_port_exports_every_reference_launch_name(module):
     assert names
     missing = [n for n in names if n not in LAUNCH_NOT_YET
                and not hasattr(port, n)]
+    assert not missing, f"{port.__name__} lacks {missing}"
+
+
+# the reference's names whose work the port does another way: the compiled
+# program's HLO walk becomes the meta run's counts
+REPLACED = {"HloAnalysis": "meta_counts", "analyze_hlo": "meta_counts"}
+
+
+@pytest.mark.parametrize("module", ["repro.launch.dryrun", "repro.roofline"])
+def test_port_exports_every_reference_name_read_from_source(module):
+    """Every public function and class of the reference module, read with
+    ``ast``: importing ``repro.launch.dryrun`` would set 512 fake XLA
+    devices for every later test of this process."""
+    import importlib
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+             and not n.name.startswith("_")]
+    assert names
+    port = importlib.import_module(module.replace("repro", "repro_torch", 1))
+    missing = [n for n in names if not hasattr(port, REPLACED.get(n, n))]
     assert not missing, f"{port.__name__} lacks {missing}"

@@ -1,0 +1,67 @@
+"""The serving launcher (``python -m repro_torch.launch.serve``) on the CPU
+against the reference's (``repro.launch.serve.main``) on the same
+arguments: reduced granite-3-8b, 6 requests under a pool of 10 slots, the
+reference's weights (its ``init_params(PRNGKey(0))``, carried over through
+``bridge``) and prompts (``default_rng(0)`` in both).  Every printed line
+is equal but for ``wall=``.  And ``--dryrun``: one rank's decode cell on
+the meta device, an ``ok`` record, exit 0."""
+import json
+import re
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+ARGS = ["--arch", "granite-3-8b", "--local", "--requests", "6", "--max-new", "8",
+        "--pool-slots", "10", "--max-batch", "3", "--page", "4"]
+
+
+def _lines(text):
+    return [re.sub(r"wall=\S+", "wall=", line) for line in text.splitlines()]
+
+
+def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
+    from repro.configs import get_arch as ref_get_arch
+    from repro.configs import reduced as ref_reduced
+    from repro.launch import serve as ref_serve
+    from repro.models import transformer as ref_T
+    from repro_torch import bridge
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    monkeypatch.setattr(sys, "argv", ["serve"] + ARGS)
+    assert ref_serve.main() == 0
+    want = _lines(capsys.readouterr().out)
+
+    numpy_params = jax.tree.map(np.asarray, ref_T.init_params(
+        jax.random.PRNGKey(0), ref_reduced(ref_get_arch("granite-3-8b"))))
+    monkeypatch.setattr(T, "init_params",
+                        lambda cfg, generator=None, device="cpu", **kw:
+                        bridge.to_torch(numpy_params, device))
+    assert serve.main(ARGS + ["--device", "cpu"]) == 0
+    got = _lines(capsys.readouterr().out)
+    assert len(want) == 7 and want[0].startswith("policy=valet requests=6")
+    assert got == want
+    assert "pauses=0 " not in want[1]          # the pool was under pressure
+
+
+def test_seed_is_gone():
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(ARGS + ["--seed", "1"])
+
+
+def test_dryrun_writes_an_ok_record(monkeypatch, tmp_path):
+    from repro_torch.launch import dryrun, serve
+    monkeypatch.setattr(dryrun, "_artifact_dir", lambda: str(tmp_path))
+    assert serve.main(["--arch", "granite-3-8b", "--dryrun"]) == 0
+    rec = json.loads((tmp_path / "single" / "granite-3-8b__decode_32k.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["shape"] == "decode_32k"
+    # a shape that does not apply: the skip record, exit 1 as the reference
+    assert serve.main(["--arch", "granite-3-8b", "--dryrun",
+                       "--shape", "long_500k"]) == 1

@@ -858,3 +858,43 @@ def run_pipeline(case, workdir: Path):
     ref = run_reference(body, world, workdir)
     spawn_ranks(pp_rank, world, str(workdir), case)
     return ref, [dict(np.load(rank_out(workdir, r))) for r in range(world)]
+
+
+# --------------------------------------------------------------------------
+# The dry mesh's transports against a real mesh's
+# --------------------------------------------------------------------------
+
+def transport_script(mesh, device):
+    """A fixed sequence of transports over ``mesh`` (1x2, data x model):
+    all-reduce sum and max, all-gather on the first and the last dim, a
+    ring shift, and under autograd ``enter`` and a ring shift whose
+    backwards move.  Returns ([(shape, dtype name)] of the outputs,
+    {"direction/op": [calls, output bytes]})."""
+    import torch
+    outs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones((3, 5), dtype=dtype, device=device)
+        outs.append(mesh.all_reduce(x.clone(), "model"))
+        outs.append(mesh.all_reduce(x.clone(), ("data", "model"), op="max"))
+        outs.append(mesh.all_gather(x, "model", dim=0))
+        outs.append(mesh.all_gather(x, ("data", "model"), dim=-1))
+        outs.append(mesh.ring_shift(x, "model"))
+    w = torch.ones((4, 6), device=device, requires_grad=True)
+    y = mesh.ring_shift(mesh.enter(w, "model") * 2.0, "model")
+    z = mesh.all_gather(y, "model", dim=1)
+    outs += [y, z]
+    z.sum().backward()
+    outs.append(w.grad)
+    shapes = [(tuple(o.shape), str(o.dtype)) for o in outs]
+    stats = {f"{d}/{op}": [row[0], row[2]] for (d, op), row in mesh.stats.items()}
+    return shapes, stats
+
+
+def transport_rank(rank, workdir):
+    import json
+
+    from repro_torch.launch.mesh import Mesh
+    shapes, stats = transport_script(Mesh((1, 2), ("data", "model"), rank=rank),
+                                     "cpu")
+    (Path(workdir) / f"rank{rank}.json").write_text(
+        json.dumps({"shapes": shapes, "stats": stats}))
