@@ -17,6 +17,8 @@ from typing import List, NamedTuple, Sequence
 
 import torch
 
+from repro_torch.core import spans
+
 
 class KVPool(NamedTuple):
     """One layer's paged KV storage."""
@@ -148,28 +150,36 @@ def to_host_tier_many(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     A CUDA tensor is copied into pinned CPU memory with ``non_blocking``
     copies, all issued before one synchronisation of the copying streams, so
     the blobs are complete when this returns and host code may read them.
-    A CPU tensor is cloned.  The spill round-trips exactly."""
-    out, streams = [], {}
-    for x in xs:
-        if x.is_cuda:
-            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            h.copy_(x, non_blocking=True)
-            streams[x.device] = torch.cuda.current_stream(x.device)
-            out.append(h)
-        else:
-            out.append(x.clone())
-    for s in streams.values():
-        s.synchronize()
+    A CPU tensor is cloned.  The spill round-trips exactly.  Spans
+    ``host_tier.issue`` (allocations and copies) and ``host_tier.wait``
+    (the synchronisation) carry the bytes moved."""
+    out, streams, nbytes = [], {}, 0
+    with spans.span("host_tier.issue") as sp:
+        for x in xs:
+            nbytes += x.nbytes
+            if x.is_cuda:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                streams[x.device] = torch.cuda.current_stream(x.device)
+                out.append(h)
+            else:
+                out.append(x.clone())
+        sp.set(nbytes)
+    with spans.span("host_tier.wait", n=nbytes):
+        for s in streams.values():
+            s.synchronize()
     return out
 
 
 def stack_host_tier(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Stack host-tier blobs along a new first axis, into pinned memory
     when the blobs are pinned, so that the batch's copy to the device stays
-    asynchronous as each blob's own would be."""
-    out = torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
-                      pin_memory=xs[0].is_pinned())
-    return torch.stack(list(xs), out=out)
+    asynchronous as each blob's own would be.  Span ``host_tier.stack``
+    carries the bytes stacked."""
+    with spans.span("host_tier.stack", n=len(xs) * xs[0].nbytes):
+        out = torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
+                          pin_memory=xs[0].is_pinned())
+        return torch.stack(list(xs), out=out)
 
 
 def to_host_tier(x: torch.Tensor) -> torch.Tensor:

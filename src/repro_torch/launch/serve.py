@@ -6,7 +6,9 @@ unless ``--device cpu``.
 
 ``--local`` serves the reduced config.  The weights are random, made from
 seed 0 as the reference's ``PRNGKey(0)``, and the prompts are drawn from
-``default_rng(0)``.
+``default_rng(0)``.  The printed lines are the reference's, and the third
+ends in what only the port counts: the bytes the engine moved from the
+card to the host tier and back (``EngineStats.d2h_bytes``/``h2d_bytes``).
 
 ``--dryrun`` runs the sharded serve step of ``--shape`` for one rank of
 the production mesh on the meta device (``launch/dryrun.py``) and writes
@@ -68,7 +70,8 @@ def main(argv=None):
     print(f"steps={s.steps} pauses={s.pauses} spilled={s.spilled_pages} "
           f"restored={s.restored_pages} recomputes={s.recomputes}")
     print(f"sim_time={s.sim_time_us / 1e3:.2f}ms "
-          f"bg_time={s.bg_time_us / 1e3:.2f}ms wall={s.wall_time_s:.2f}s")
+          f"bg_time={s.bg_time_us / 1e3:.2f}ms wall={s.wall_time_s:.2f}s "
+          f"d2h={s.d2h_bytes / 1e6:.3f}MB h2d={s.h2d_bytes / 1e6:.3f}MB")
     for r in reqs[:4]:
         print(f"  req{r.rid}: {r.tokens_out[:8]}...")
     return 0

@@ -35,9 +35,14 @@ memory), and deleted pages are recomputed by a real re-prefill.
 
 Calls are eager: every prefill and decode step runs as it is issued, on the
 device of the caches (``device="cuda"`` unless the caller asks for the
-CPU).  The simulated costs (``costs``, ``sim_time_us`` and the rest of
-``EngineStats`` except ``wall_time_s``) are the reference's simulation,
-not measurements of the device this runs on.
+CPU).  The simulated costs (``costs``, ``sim_time_us``, ``bg_time_us``,
+``daemon_us``, ``fence_wait_us`` and the latency reservoirs of
+``EngineStats``) are the reference's simulation, not measurements of the
+device this runs on.  The rest of ``EngineStats`` counts what happened:
+``wall_time_s`` on the host's clock, and ``d2h_bytes``/``h2d_bytes`` the
+bytes moved between the device and the host tier (pool pages, per-slot
+blobs).  With ``core.spans`` on, each layer of the engine's work records
+a span (``engine.*``, and ``host_tier.*`` from ``device_ops``).
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import device_ops as dev
+from repro_torch.core import spans
 from repro_torch.core.activity import ActivityTracker
 from repro_torch.core.async_engine import DaemonClock
 from repro_torch.core.config import (OrchestrationConfig,
@@ -106,6 +112,10 @@ class EngineStats(LatencyStatsMixin):
     repointed_pages: int = 0         # restores that were pure repoints
     streamed_pages: int = 0          # restores that paid a per-page host read
     flushed_pages: int = 0           # background write-backs to the host tier
+    # bytes moved between the device and the host tier (real, not simulated;
+    # the port's own: the reference has no such fields)
+    d2h_bytes: int = 0               # flushes, forced evictions, spills, blobs
+    h2d_bytes: int = 0               # stream-ins and blob write-backs
 
 
 class ValetServeEngine:
@@ -196,6 +206,7 @@ class ValetServeEngine:
         self.async_mode = async_mode
         self.daemon = DaemonClock()
         self.step_counter = 0
+        self._step_index = 0             # step() calls, for the span log
         self._next_page_id = 0
         self._slots_free = list(range(max_batch))
         self._requests: Dict[int, Request] = {}
@@ -271,6 +282,7 @@ class ValetServeEngine:
             pool = self.caches["layers"][li]["pool"]
             xs += [pool.k[idx], pool.v[idx]]
         hs = dev.to_host_tier_many(xs)
+        self.stats.d2h_bytes += sum(h.nbytes for h in hs)
         return {li: (hs[2 * i], hs[2 * i + 1])
                 for i, li in enumerate(self.paged_layers)}
 
@@ -287,10 +299,11 @@ class ValetServeEngine:
             return
         dirty = [(pg, sl) for pg, sl in pairs if pg not in self.host]
         if dirty:
-            layer_kv = self._pool_pages_to_host([sl for _, sl in dirty])
-            for i, (pg, _) in enumerate(dirty):
-                self.host.put(pg, {li: (kv[0][i], kv[1][i])
-                                   for li, kv in layer_kv.items()})
+            with spans.span("engine.evict_dirty", n=len(dirty)):
+                layer_kv = self._pool_pages_to_host([sl for _, sl in dirty])
+                for i, (pg, _) in enumerate(dirty):
+                    self.host.put(pg, {li: (kv[0][i], kv[1][i])
+                                       for li, kv in layer_kv.items()})
             self.stats.sim_time_us += self.costs.host_write * len(dirty)
             self.stats.flushed_pages += len(dirty)
         # every evicted page is host-resident now: retier DEVICE -> HOST
@@ -309,22 +322,24 @@ class ValetServeEngine:
         q = self._flush_q
         if not q:
             return 0
-        n = len(q) if budget is None else min(int(budget), len(q))
-        todo, slots = [], []
-        for _ in range(n):
-            pg = q.popleft()
-            # skip pages that left the device tier (evicted / repointed /
-            # freed) or were already flushed by an earlier queue entry
-            sl = self.device.slot_of(pg)
-            if sl is not None and pg not in self.host:
-                todo.append(pg)
-                slots.append(sl)
-        if not todo:
-            return 0
-        layer_kv = self._pool_pages_to_host(slots)
-        for i, pg in enumerate(todo):
-            self.host.put(pg, {li: (kv[0][i], kv[1][i])
-                               for li, kv in layer_kv.items()})
+        with spans.span("engine.flush") as sp:
+            n = len(q) if budget is None else min(int(budget), len(q))
+            todo, slots = [], []
+            for _ in range(n):
+                pg = q.popleft()
+                # skip pages that left the device tier (evicted / repointed /
+                # freed) or were already flushed by an earlier queue entry
+                sl = self.device.slot_of(pg)
+                if sl is not None and pg not in self.host:
+                    todo.append(pg)
+                    slots.append(sl)
+            if not todo:
+                return 0
+            layer_kv = self._pool_pages_to_host(slots)
+            for i, pg in enumerate(todo):
+                self.host.put(pg, {li: (kv[0][i], kv[1][i])
+                                   for li, kv in layer_kv.items()})
+            sp.set(len(todo))
         m = len(todo)
         self.stats.flushed_pages += m
         cost = self.costs.host_write * m
@@ -423,24 +438,25 @@ class ValetServeEngine:
 
     def _make_room(self, n_pages: int) -> bool:
         """Policy-driven preemption to free >= n_pages pool slots."""
-        victims_order = sorted(
-            [r for r in self._requests.values() if r.status == "active"],
-            key=lambda r: r.last_active_step)
-        freed = 0
-        while self.pool.free_count() < n_pages and victims_order:
-            if self.policy.evict_action == "migrate":
-                victim = victims_order.pop(0)      # NAD: least recently active
-            elif self.policy.victim == "random":
-                victim = victims_order.pop(
-                    int(self.rng.integers(len(victims_order))))
-            else:
-                victim = victims_order.pop(0)
-            freed += self._preempt(victim)
-        if self._zero and freed:
-            # the freed slots are about to be handed out: flush the newly
-            # demoted pages now so the reuse finds them clean
-            self._flush_demoted(None)
-        return self.pool.free_count() >= n_pages
+        with spans.span("engine.make_room", n=n_pages):
+            victims_order = sorted(
+                [r for r in self._requests.values() if r.status == "active"],
+                key=lambda r: r.last_active_step)
+            freed = 0
+            while self.pool.free_count() < n_pages and victims_order:
+                if self.policy.evict_action == "migrate":
+                    victim = victims_order.pop(0)   # NAD: least recently active
+                elif self.policy.victim == "random":
+                    victim = victims_order.pop(
+                        int(self.rng.integers(len(victims_order))))
+                else:
+                    victim = victims_order.pop(0)
+                freed += self._preempt(victim)
+            if self._zero and freed:
+                # the freed slots are about to be handed out: flush the
+                # newly demoted pages now so the reuse finds them clean
+                self._flush_demoted(None)
+            return self.pool.free_count() >= n_pages
 
     def _restore(self, req: Request) -> bool:
         """Bring a paused sequence's pages back into the pool.
@@ -462,14 +478,15 @@ class ValetServeEngine:
                 return False
         needed_l = needed.tolist()
         if self._zero:
-            return self._restore_zero(needed, needed_l, n)
+            return self._restore_zero(needed, needed_l, n, req.rid)
         if self.async_mode:
             # a restore is a true data dependency on the spill daemon
             self._fence()
-        slots = self.pool.alloc_batch(needed_l, [self.step_counter] * n)
-        if slots is None:           # cannot happen: free_count checked above
-            raise RuntimeError(f"pool refused batch of {n} restore pages")
-        self._stream_in(needed_l, slots)
+        with spans.span("engine.stream_in", req.rid, n):
+            slots = self.pool.alloc_batch(needed_l, [self.step_counter] * n)
+            if slots is None:       # cannot happen: free_count checked above
+                raise RuntimeError(f"pool refused batch of {n} restore pages")
+            self._stream_in(needed_l, slots)
         self.gpt.map_local_batch(needed, np.asarray(slots, np.int64))
         self.gpt.drop_remote_batch(needed)
         self.tracker.on_write(needed_l, self.step_counter)
@@ -478,8 +495,9 @@ class ValetServeEngine:
         return True
 
     def _restore_zero(self, needed: np.ndarray, needed_l: List[int],
-                      n: int) -> bool:
-        """Repoint-first restore (the caller verified ``n`` free slots)."""
+                      n: int, rid: int = -1) -> bool:
+        """Repoint-first restore (the caller verified ``n`` free slots) of
+        request ``rid``'s ``needed`` pages."""
         in_dev = [pg for pg in needed_l if pg in self.device]
         rp_pages, rp_slots, missed = self.device.split(
             in_dev, self.pool.free_gen)
@@ -488,12 +506,13 @@ class ValetServeEngine:
         if rp_pages:
             # zero-copy path: claim the exact old slots back and repoint
             # the block table at them — no data movement, no sim cost
-            self.pool.claim_batch(rp_slots, rp_pages, self.step_counter)
-            self.gpt.map_local_batch(np.asarray(rp_pages, np.int64),
-                                     np.asarray(rp_slots, np.int64))
-            # a clean flushed copy goes stale the moment the sequence
-            # appends into its partial page again, so drop it
-            self.host.drop(rp_pages)
+            with spans.span("engine.repoint", rid, len(rp_pages)):
+                self.pool.claim_batch(rp_slots, rp_pages, self.step_counter)
+                self.gpt.map_local_batch(np.asarray(rp_pages, np.int64),
+                                         np.asarray(rp_slots, np.int64))
+                # a clean flushed copy goes stale the moment the sequence
+                # appends into its partial page again, so drop it
+                self.host.drop(rp_pages)
             self.stats.repointed_pages += len(rp_pages)
         if stream:
             if self.async_mode:
@@ -501,13 +520,15 @@ class ValetServeEngine:
                 # writes — a true data dependency, so fence on it
                 self._fence()
             k = len(stream)
-            slots = self.pool.alloc_batch(stream, [self.step_counter] * k)
-            if slots is None:       # cannot happen: free_count checked above
-                raise RuntimeError(f"pool refused batch of {k} stream pages")
-            self._note_allocated(slots)
-            self._stream_in(stream, slots)
-            self.gpt.map_local_batch(np.asarray(stream, np.int64),
-                                     np.asarray(slots, np.int64))
+            with spans.span("engine.stream_in", rid, k):
+                slots = self.pool.alloc_batch(stream, [self.step_counter] * k)
+                if slots is None:   # cannot happen: free_count checked above
+                    raise RuntimeError(
+                        f"pool refused batch of {k} stream pages")
+                self._note_allocated(slots)
+                self._stream_in(stream, slots)
+                self.gpt.map_local_batch(np.asarray(stream, np.int64),
+                                         np.asarray(slots, np.int64))
             self.stats.streamed_pages += k
             self.stats.sim_time_us += self.costs.host_read * k
         self.gpt.drop_remote_batch(needed)
@@ -528,6 +549,7 @@ class ValetServeEngine:
         for li in self.paged_layers:
             ks = dev.stack_host_tier([b[li][0] for b in blobs])
             vs = dev.stack_host_tier([b[li][1] for b in blobs])
+            self.stats.h2d_bytes += ks.nbytes + vs.nbytes
             self.caches["layers"][li]["pool"] = dev.local_write_batch(
                 self.caches["layers"][li]["pool"], ks, vs, idx)
 
@@ -550,16 +572,19 @@ class ValetServeEngine:
     def _admit(self, req: Request) -> bool:
         if not self._slots_free:
             return False
-        need = self._pages_for(len(req.prompt) + 1)
-        if self.pool.free_count() < need and not self._reserve(need):
-            return False
-        req.slot = self._slots_free.pop()
-        if not self._alloc_pages(req, need):
-            raise RuntimeError(f"admit: failed to allocate {need} pages")
-        bt = self._block_table_row(req)
-        logits = self._prefill_one(req.prompt, req.slot, bt)
-        # the prompt's last position yields the first generated token
-        req.tokens_out.append(int(logits[0].argmax()))
+        with spans.span("engine.admit", req.rid, len(req.prompt)) as sp:
+            need = self._pages_for(len(req.prompt) + 1)
+            if self.pool.free_count() < need and not self._reserve(need):
+                sp.drop()
+                return False
+            req.slot = self._slots_free.pop()
+            if not self._alloc_pages(req, need):
+                raise RuntimeError(f"admit: failed to allocate {need} pages")
+            bt = self._block_table_row(req)
+            with spans.span("engine.prefill", req.rid, len(req.prompt)):
+                logits = self._prefill_one(req.prompt, req.slot, bt)
+                # the prompt's last position yields the first generated token
+                req.tokens_out.append(int(logits[0].argmax()))
         self.stats.tokens += 1
         self.stats.sim_time_us += self.costs.local_write * need
         if req.first_token_us < 0:
@@ -576,68 +601,90 @@ class ValetServeEngine:
     def _resume(self, req: Request) -> bool:
         if not self._slots_free:
             return False
-        if self.policy.evict_action == "delete" or not req.pages:
-            # pages were deleted: re-prefill prompt + generated tokens,
-            # EXCLUDING the newest one — the next decode step consumes it
-            full = np.concatenate([req.prompt,
-                                   np.asarray(req.tokens_out[:-1], np.int64)])
-            need = self._pages_for(len(full) + 1)
-            if self.pool.free_count() < need and not self._reserve(need):
+        # a resume that cannot make room is no resume: its span is dropped
+        with spans.span("engine.resume", req.rid) as sp:
+            if self.policy.evict_action == "delete" or not req.pages:
+                # pages were deleted: re-prefill prompt + generated tokens,
+                # EXCLUDING the newest one — the next decode step consumes it
+                full = np.concatenate(
+                    [req.prompt, np.asarray(req.tokens_out[:-1], np.int64)])
+                need = self._pages_for(len(full) + 1)
+                if self.pool.free_count() < need and not self._reserve(need):
+                    sp.drop()
+                    return False
+                with spans.span("engine.recompute", req.rid, need):
+                    req.slot = self._slots_free.pop()
+                    if not self._alloc_pages(req, need):
+                        raise RuntimeError(
+                            f"resume: failed to allocate {need} pages")
+                    self._prefill_one(full, req.slot,
+                                      self._block_table_row(req))
+                sp.set(need)
+                self.stats.recomputes += 1
+                self.stats.sim_time_us += self.costs.cold_read * need
+                req.status = "active"
+                req.last_active_step = self.step_counter
+                return True
+            restored = self.stats.restored_pages
+            if not self._restore(req):
+                sp.drop()
                 return False
+            sp.set(self.stats.restored_pages - restored)
             req.slot = self._slots_free.pop()
-            if not self._alloc_pages(req, need):
-                raise RuntimeError(f"resume: failed to allocate {need} pages")
-            self._prefill_one(full, req.slot, self._block_table_row(req))
-            self.stats.recomputes += 1
-            self.stats.sim_time_us += self.costs.cold_read * need
+            # ring and SSM caches hold this slot's data only while the
+            # sequence keeps its batch slot; after a pause it re-owns a slot,
+            # so the per-slot state round-trips through a host blob keyed by
+            # rid
+            blob = self._seq_blobs.pop(req.rid, None)
+            if blob is not None:
+                self._write_seq_blob(req.slot, blob, req.rid)
             req.status = "active"
             req.last_active_step = self.step_counter
             return True
-        if not self._restore(req):
-            return False
-        req.slot = self._slots_free.pop()
-        # ring and SSM caches hold this slot's data only while the sequence
-        # keeps its batch slot; after a pause it re-owns a slot, so the
-        # per-slot state round-trips through a host blob keyed by rid
-        blob = self._seq_blobs.pop(req.rid, None)
-        if blob is not None:
-            self._write_seq_blob(req.slot, blob)
-        req.status = "active"
-        req.last_active_step = self.step_counter
-        return True
 
     # per-sequence (non-paged) cache spill helpers: the ring of every
     # sliding-window layer and the SSD state + conv ring of every SSM layer,
     # all to the host tier behind one synchronisation
-    def _read_seq_blob(self, slot: int):
-        keys, xs = [], []
-        for li, c in enumerate(self.caches["layers"]):
-            if "ring" in c:
-                keys.append((li, "ring"))
-                xs += [c["ring"].k[slot], c["ring"].v[slot]]
-            if "ssm" in c:
-                keys.append((li, "ssm"))
-                xs += [c["ssm"]["h"][slot], c["ssm"]["conv"][slot]]
-        hs = dev.to_host_tier_many(xs)
-        out = [{} for _ in self.caches["layers"]]
-        for i, (li, key) in enumerate(keys):
-            out[li][key] = (hs[2 * i], hs[2 * i + 1])
-        out.append(int(self.caches["lengths"][slot]))
+    def _read_seq_blob(self, slot: int, rid: int = -1):
+        with spans.span("engine.seq_blob.read", rid) as sp:
+            keys, xs = [], []
+            for li, c in enumerate(self.caches["layers"]):
+                if "ring" in c:
+                    keys.append((li, "ring"))
+                    xs += [c["ring"].k[slot], c["ring"].v[slot]]
+                if "ssm" in c:
+                    keys.append((li, "ssm"))
+                    xs += [c["ssm"]["h"][slot], c["ssm"]["conv"][slot]]
+            hs = dev.to_host_tier_many(xs)
+            nbytes = sum(h.nbytes for h in hs)
+            self.stats.d2h_bytes += nbytes
+            sp.set(nbytes)
+            out = [{} for _ in self.caches["layers"]]
+            for i, (li, key) in enumerate(keys):
+                out[li][key] = (hs[2 * i], hs[2 * i + 1])
+            out.append(int(self.caches["lengths"][slot]))
         return out
 
-    def _write_seq_blob(self, slot: int, blob):
+    def _write_seq_blob(self, slot: int, blob, rid: int = -1):
         *layers, length = blob
-        for c, e in zip(self.caches["layers"], layers):
-            if "ring" in e:
-                ring = c["ring"]
-                ring.k[slot].copy_(dev.from_host_tier(e["ring"][0], ring.k))
-                ring.v[slot].copy_(dev.from_host_tier(e["ring"][1], ring.v))
-            if "ssm" in e:
-                st = c["ssm"]
-                st["h"][slot].copy_(dev.from_host_tier(e["ssm"][0], st["h"]))
-                st["conv"][slot].copy_(dev.from_host_tier(e["ssm"][1],
-                                                          st["conv"]))
-        self.caches["lengths"][slot] = length
+        nbytes = sum(h.nbytes for e in layers for pair in e.values()
+                     for h in pair)
+        self.stats.h2d_bytes += nbytes
+        with spans.span("engine.seq_blob.write", rid, nbytes):
+            for c, e in zip(self.caches["layers"], layers):
+                if "ring" in e:
+                    ring = c["ring"]
+                    ring.k[slot].copy_(dev.from_host_tier(e["ring"][0],
+                                                          ring.k))
+                    ring.v[slot].copy_(dev.from_host_tier(e["ring"][1],
+                                                          ring.v))
+                if "ssm" in e:
+                    st = c["ssm"]
+                    st["h"][slot].copy_(dev.from_host_tier(e["ssm"][0],
+                                                           st["h"]))
+                    st["conv"][slot].copy_(dev.from_host_tier(e["ssm"][1],
+                                                              st["conv"]))
+            self.caches["lengths"][slot] = length
 
     def _block_table_row(self, req: Request) -> np.ndarray:
         row = np.full((self.max_pages,), -1, np.int32)
@@ -653,27 +700,32 @@ class ValetServeEngine:
         """One scheduler iteration: admissions + resumes, one background
         flush slice, one batched decode step over the active set.  Returns
         ``False`` once nothing is waiting, paused, or active."""
-        sim_before = self.stats.sim_time_us
-        pending = [r for r in self._requests.values()
-                   if r.status in ("waiting", "paused")]
-        for r in pending:
-            if r.status == "waiting":
-                self._admit(r)
-            else:
-                self._resume(r)
-        # background write-back slice: secure host copies for recently
-        # demoted pages while the foreground decodes
-        self._flush_demoted(self.flush_batch)
-        active = [r for r in self._requests.values() if r.status == "active"]
-        if not active:
-            # True while something is still pending (deadlock guard: the
-            # caller retries, admissions force room next iteration)
-            return any(r.status in ("waiting", "paused")
-                       for r in self._requests.values())
-        self._step_active(active, greedy)
-        # one scheduler iteration = one critical-path latency sample
-        self.stats.lat.record(self.stats.sim_time_us - sim_before)
-        return True
+        k = self._step_index
+        self._step_index += 1
+        with spans.span("engine.step", n=k, step=k):
+            sim_before = self.stats.sim_time_us
+            pending = [r for r in self._requests.values()
+                       if r.status in ("waiting", "paused")]
+            for r in pending:
+                if r.status == "waiting":
+                    self._admit(r)
+                else:
+                    self._resume(r)
+            # background write-back slice: secure host copies for recently
+            # demoted pages while the foreground decodes
+            self._flush_demoted(self.flush_batch)
+            active = [r for r in self._requests.values()
+                      if r.status == "active"]
+            if not active:
+                # True while something is still pending (deadlock guard: the
+                # caller retries, admissions force room next iteration)
+                return any(r.status in ("waiting", "paused")
+                           for r in self._requests.values())
+            with spans.span("engine.decode", n=len(active)):
+                self._step_active(active, greedy)
+            # one scheduler iteration = one critical-path latency sample
+            self.stats.lat.record(self.stats.sim_time_us - sim_before)
+            return True
 
     def run(self, max_steps: int = 10_000, greedy: bool = True):
         """Drive until all requests are done (or max_steps)."""
@@ -687,132 +739,140 @@ class ValetServeEngine:
         return [r for r in self._requests.values()]
 
     def _step_active(self, active: List[Request], greedy: bool):
-        self.step_counter += 1
-        if self._lease is not None:
-            # demand signal: busy engines are reclaimed from last (§3.4)
-            self.coordinator.note_activity(self._lease.cid, len(active))
-        # one device->host transfer for every sequence length this step
-        lengths = self.caches["lengths"].cpu().numpy()
-        # grow pages where the next token crosses a page boundary
-        for r in active:
-            pos = int(lengths[r.slot])
-            if pos % self.page == 0 and self._pages_for(pos + 1) > len(r.pages):
-                if self._alloc_page(r) is None:
-                    self._preempt(r)
-        active = [r for r in active if r.status == "active"]
-        if not active:
-            return
-
-        bt = np.full((self.max_batch, self.max_pages), -1, np.int32)
-        app_slot = np.zeros((self.max_batch,), np.int32)
-        app_off = np.zeros((self.max_batch,), np.int32)
-        toks = np.zeros((self.max_batch,), np.int64)
-        act = np.zeros((self.max_batch,), bool)
-        # one batched KV-page table resolution for the whole decode step
-        flat_pages = np.concatenate(
-            [np.asarray(r.pages[: self.max_pages], np.int64)
-             for r in active]) if active else np.empty(0, np.int64)
-        flat_slots = self.gpt.local_slots_batch(flat_pages)
-        step_pages = []
-        off = 0
-        for r in active:
-            b = r.slot
-            npg = min(len(r.pages), self.max_pages)
-            bt[b, :npg] = flat_slots[off:off + npg]
-            pos = int(lengths[b])
-            pidx = pos // self.page
-            pg = r.pages[pidx]
-            # pidx can pass max_pages when a sequence outgrows the block
-            # table; resolve those the scalar way
-            app_slot[b] = flat_slots[off + pidx] if pidx < npg \
-                else self.gpt.local_slot(pg)
-            app_off[b] = pos % self.page
-            toks[b] = (r.tokens_out[-1] if r.tokens_out
-                       else r.prompt[-1])
-            act[b] = True
-            step_pages.append(pg)
-            r.last_active_step = self.step_counter
-            off += npg
-        self.tracker.on_write(step_pages, self.step_counter)
-
-        logits, self.caches = D.decode_step(
-            self.params, self.caches, self._tensor(toks), self.cfg, self.ctx,
-            self._tensor(bt), self._tensor(app_slot), self._tensor(app_off),
-            active=self._tensor(act))
-        nxt = logits.argmax(dim=-1).cpu().numpy()
-        self.stats.steps += 1
-        self.stats.sim_time_us += self.step_cost_us \
-            + self.costs.local_write * len(active)
-        for r in active:
-            r.tokens_out.append(int(nxt[r.slot]))
-            self.stats.tokens += 1
-            if len(r.tokens_out) >= r.max_new:
-                r.status = "done"
-                self._slots_free.append(r.slot)
-                self._free_pages(r)
-                r.slot = -1
+        with spans.span("engine.decode.prep", n=len(active)):
+            self.step_counter += 1
+            if self._lease is not None:
+                # demand signal: busy engines are reclaimed from last (§3.4)
+                self.coordinator.note_activity(self._lease.cid, len(active))
+            # one device->host transfer for every sequence length this step
+            lengths = self.caches["lengths"].cpu().numpy()
+            # grow pages where the next token crosses a page boundary
+            for r in active:
+                pos = int(lengths[r.slot])
+                if pos % self.page == 0 \
+                        and self._pages_for(pos + 1) > len(r.pages):
+                    if self._alloc_page(r) is None:
+                        self._preempt(r)
+            active = [r for r in active if r.status == "active"]
+            if not active:
+                return
+            bt = np.full((self.max_batch, self.max_pages), -1, np.int32)
+            app_slot = np.zeros((self.max_batch,), np.int32)
+            app_off = np.zeros((self.max_batch,), np.int32)
+            toks = np.zeros((self.max_batch,), np.int64)
+            act = np.zeros((self.max_batch,), bool)
+            # one batched KV-page table resolution for the whole decode step
+            flat_pages = np.concatenate(
+                [np.asarray(r.pages[: self.max_pages], np.int64)
+                 for r in active]) if active else np.empty(0, np.int64)
+            flat_slots = self.gpt.local_slots_batch(flat_pages)
+            step_pages = []
+            off = 0
+            for r in active:
+                b = r.slot
+                npg = min(len(r.pages), self.max_pages)
+                bt[b, :npg] = flat_slots[off:off + npg]
+                pos = int(lengths[b])
+                pidx = pos // self.page
+                pg = r.pages[pidx]
+                # pidx can pass max_pages when a sequence outgrows the block
+                # table; resolve those the scalar way
+                app_slot[b] = flat_slots[off + pidx] if pidx < npg \
+                    else self.gpt.local_slot(pg)
+                app_off[b] = pos % self.page
+                toks[b] = (r.tokens_out[-1] if r.tokens_out
+                           else r.prompt[-1])
+                act[b] = True
+                step_pages.append(pg)
+                r.last_active_step = self.step_counter
+                off += npg
+            self.tracker.on_write(step_pages, self.step_counter)
+        n = len(active)
+        with spans.span("engine.decode.upload", n=n):
+            toks, bt, app_slot, app_off, act = (
+                self._tensor(a) for a in (toks, bt, app_slot, app_off, act))
+        with spans.span("engine.decode.issue", n=n):
+            logits, self.caches = D.decode_step(
+                self.params, self.caches, toks, self.cfg, self.ctx, bt,
+                app_slot, app_off, active=act)
+        with spans.span("engine.decode.readback", n=n):
+            nxt = logits.argmax(dim=-1).cpu().numpy()
+            self.stats.steps += 1
+            self.stats.sim_time_us += self.step_cost_us \
+                + self.costs.local_write * n
+            for r in active:
+                r.tokens_out.append(int(nxt[r.slot]))
+                self.stats.tokens += 1
+                if len(r.tokens_out) >= r.max_new:
+                    r.status = "done"
+                    self._slots_free.append(r.slot)
+                    self._free_pages(r)
+                    r.slot = -1
 
     def _preempt(self, req: Request) -> int:
         """Pause a sequence: demote (zero-restore), spill (legacy valet /
         os-swap) or delete (infiniswap) its pool pages + save its per-slot
         (ring, SSM) caches."""
-        n = len(req.pages)
-        self.stats.pauses += 1
-        if req.slot >= 0:
-            self._seq_blobs[req.rid] = self._read_seq_blob(req.slot)
-            self._slots_free.append(req.slot)
-            req.slot = -1
-        if self.policy.evict_action == "delete":
-            self._free_pages(req)
-            req.status = "paused"
-            req.n_recomputes += 1
-            self.stats.deleted_pages += n
-            self._seq_blobs.pop(req.rid, None)
-            return n
-        live = np.empty(0, np.int64)
-        if req.pages:
-            parr = np.asarray(req.pages, np.int64)
-            lslots = self.gpt.local_slots_batch(parr)
-            mask = lslots >= 0
-            live = parr[mask]
-            live_slots = lslots[mask]
-        if live.size and self._zero:
-            # zero-restore demote: a pure metadata move.  The slots return
-            # to the free list but the KV bytes stay put, registered with
-            # the device tier under the pool's current generation
-            m = int(live.size)
-            self.device.demote(live.tolist(), live_slots.tolist(),
-                                    self.pool.gen[live_slots].tolist())
-            self.pool.release_batch(live_slots.tolist())
-            self.gpt.unmap_local_batch(live)
-            self.gpt.map_remote_batch(live, [int(Tier.DEVICE)] * m,
-                                      [-1] * m, live_slots.tolist(), None)
-            self._flush_q.extend(live.tolist())
-            self.stats.demoted_pages += m
-            self.stats.spilled_pages += m
-        elif live.size:
-            # legacy bulk spill: one gather + host transfer per paged layer,
-            # then grouped release / unmap / remote-map
-            layer_kv = self._pool_pages_to_host(live_slots)
-            for i, pg in enumerate(live.tolist()):
-                self.host.put(pg, {li: (kv[0][i], kv[1][i])
-                                   for li, kv in layer_kv.items()})
-            self.pool.release_batch(live_slots.tolist())
-            self.gpt.unmap_local_batch(live)
-            m = int(live.size)
-            self.gpt.map_remote_batch(live, [int(Tier.HOST)] * m,
-                                      [-1] * m, [-1] * m, None)
-            self.stats.spilled_pages += m
-            cost = self.costs.host_write * m
-            if self.policy.lazy_send:
-                if self.async_mode:
-                    # charge the daemon clock: the spill overlaps decode,
-                    # but a restore of these pages must fence on it
-                    self.daemon.charge(cost, self.stats.sim_time_us)
-                    self.stats.daemon_us += cost
+        with spans.span("engine.preempt", req.rid, len(req.pages)):
+            n = len(req.pages)
+            self.stats.pauses += 1
+            if req.slot >= 0:
+                self._seq_blobs[req.rid] = self._read_seq_blob(req.slot,
+                                                               req.rid)
+                self._slots_free.append(req.slot)
+                req.slot = -1
+            if self.policy.evict_action == "delete":
+                self._free_pages(req)
+                req.status = "paused"
+                req.n_recomputes += 1
+                self.stats.deleted_pages += n
+                self._seq_blobs.pop(req.rid, None)
+                return n
+            live = np.empty(0, np.int64)
+            if req.pages:
+                parr = np.asarray(req.pages, np.int64)
+                lslots = self.gpt.local_slots_batch(parr)
+                mask = lslots >= 0
+                live = parr[mask]
+                live_slots = lslots[mask]
+            if live.size and self._zero:
+                # zero-restore demote: a pure metadata move.  The slots
+                # return to the free list but the KV bytes stay put,
+                # registered with the device tier under the pool's current
+                # generation
+                m = int(live.size)
+                self.device.demote(live.tolist(), live_slots.tolist(),
+                                   self.pool.gen[live_slots].tolist())
+                self.pool.release_batch(live_slots.tolist())
+                self.gpt.unmap_local_batch(live)
+                self.gpt.map_remote_batch(live, [int(Tier.DEVICE)] * m,
+                                          [-1] * m, live_slots.tolist(), None)
+                self._flush_q.extend(live.tolist())
+                self.stats.demoted_pages += m
+                self.stats.spilled_pages += m
+            elif live.size:
+                # legacy bulk spill: one gather + host transfer per paged
+                # layer, then grouped release / unmap / remote-map
+                layer_kv = self._pool_pages_to_host(live_slots)
+                for i, pg in enumerate(live.tolist()):
+                    self.host.put(pg, {li: (kv[0][i], kv[1][i])
+                                       for li, kv in layer_kv.items()})
+                self.pool.release_batch(live_slots.tolist())
+                self.gpt.unmap_local_batch(live)
+                m = int(live.size)
+                self.gpt.map_remote_batch(live, [int(Tier.HOST)] * m,
+                                          [-1] * m, [-1] * m, None)
+                self.stats.spilled_pages += m
+                cost = self.costs.host_write * m
+                if self.policy.lazy_send:
+                    if self.async_mode:
+                        # charge the daemon clock: the spill overlaps decode,
+                        # but a restore of these pages must fence on it
+                        self.daemon.charge(cost, self.stats.sim_time_us)
+                        self.stats.daemon_us += cost
+                    else:
+                        self.stats.bg_time_us += cost
                 else:
-                    self.stats.bg_time_us += cost
-            else:
-                self.stats.sim_time_us += cost
-        req.status = "paused"
-        return n
+                    self.stats.sim_time_us += cost
+            req.status = "paused"
+            return n

@@ -112,7 +112,8 @@ def test_coordinator_registers_and_leases(setup):
 
 class PerPageEngine(ValetServeEngine):
     """The stream-in as one ``stream_page`` per page and layer: the data
-    plane's per-page primitive, against which the batched write is held."""
+    plane's per-page primitive, against which the batched write is held
+    (counting the bytes it moves to the device, as the engine does)."""
 
     def _stream_in(self, pages, slots):
         for pg, sl in zip(pages, slots):
@@ -121,6 +122,7 @@ class PerPageEngine(ValetServeEngine):
                 self.caches["layers"][li]["pool"] = dev.stream_page(
                     self.caches["layers"][li]["pool"], blob[li][0],
                     blob[li][1], sl)
+                self.stats.h2d_bytes += blob[li][0].nbytes + blob[li][1].nbytes
 
 
 def test_zero_restore_streams_in_one_batched_write_per_layer(setup,

@@ -3,7 +3,8 @@ against the reference's (``repro.launch.serve.main``) on the same
 arguments: reduced granite-3-8b, 6 requests under a pool of 10 slots, the
 reference's weights (its ``init_params(PRNGKey(0))``, carried over through
 ``bridge``) and prompts (``default_rng(0)`` in both).  Every printed line
-is equal but for ``wall=``.  And ``--dryrun``: one rank's decode cell on
+is equal but for ``wall=`` and the port's own ``d2h=``/``h2d=``, which
+must be the engine's byte counters.  And ``--dryrun``: one rank's decode cell on
 the meta device, an ``ok`` record, exit 0."""
 import json
 import re
@@ -24,6 +25,14 @@ def _lines(text):
     return [re.sub(r"wall=\S+", "wall=", line) for line in text.splitlines()]
 
 
+def _host_bytes(lines):
+    """The port's ``d2h=``/``h2d=`` (MB) taken off the third line."""
+    m = re.search(r" d2h=(\S+)MB h2d=(\S+)MB$", lines[2])
+    assert m, lines[2]
+    lines[2] = lines[2][:m.start()]
+    return float(m.group(1)), float(m.group(2))
+
+
 def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
     from repro.configs import get_arch as ref_get_arch
     from repro.configs import reduced as ref_reduced
@@ -42,10 +51,21 @@ def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
     monkeypatch.setattr(T, "init_params",
                         lambda cfg, generator=None, device="cpu", **kw:
                         bridge.to_torch(numpy_params, device))
+    from repro_torch import serve as serve_pkg
+    engines, real = [], serve_pkg.ValetServeEngine
+
+    def keep(*a, **kw):
+        engines.append(real(*a, **kw))
+        return engines[-1]
+    monkeypatch.setattr(serve_pkg, "ValetServeEngine", keep)
     assert serve.main(ARGS + ["--device", "cpu"]) == 0
     got = _lines(capsys.readouterr().out)
+    d2h, h2d = _host_bytes(got)
     assert len(want) == 7 and want[0].startswith("policy=valet requests=6")
     assert got == want
+    st = engines[0].stats
+    assert (d2h, h2d) == (round(st.d2h_bytes / 1e6, 3), round(st.h2d_bytes / 1e6, 3))
+    assert st.d2h_bytes > 0 and st.h2d_bytes > 0
     assert "pauses=0 " not in want[1]          # the pool was under pressure
 
 
