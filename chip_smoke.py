@@ -8,7 +8,9 @@ It builds the hand-written kernels from ``src/repro_torch/csrc`` and
 counts the tensor-core instructions in each kernel's SASS (phase 1), holds
 each kernel against its plain PyTorch version on the card and checks that
 two calls give the same bits and that a row of the paged kernel keeps its
-bits when the other rows of its batch change (phase 2), checks
+bits when the other rows of its batch change, and times the host tier's
+page kernel at granite's shapes and its whole page move against one pinned
+copy of the same bytes (phase 2), checks
 the port's CUDA path against its CPU path on reduced configs (phase 3), then
 drives the main paths through ``ValetServeEngine`` with and without
 KV-pool pressure: full-width granite-3-8b (8 of 40 layers, every policy;
@@ -99,7 +101,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_BF16_ABS_ERR = 1e-3
 # calls of each kernel's plain version on CUDA tensors (main() counts them)
-PLAIN_CUDA_CALLS = {"paged": 0, "paged_partials": 0, "flash": 0, "ssd": 0}
+PLAIN_CUDA_CALLS = {"paged": 0, "paged_partials": 0, "flash": 0, "ssd": 0,
+                    "host_pages": 0}
 
 
 def log(*a):
@@ -503,12 +506,84 @@ def ssd_case(name, b, s, h, p, g, n, chunk, dtype, seed, s_real=None, timed=True
     return rec
 
 
+def host_pages_case(name, n, seed, layers=40, page=16, kv=8, hd=128):
+    """The host tier's page kernel at granite-3-8b's f32 pool (40 paged
+    layers, 5,242,880 B a page) over ``n`` pages: gather and scatter held
+    bit-exact against the plain version, the gather's device time against
+    its HBM bound (a read and a write of each page); then the whole move of
+    the pages to pinned host memory and back (``move_pages``: the kernel
+    and the copies through the engine's 64-page staging buffer) against
+    one pinned ``copy_`` of the same bytes each way, the PCIe yardstick."""
+    from repro_torch.core.device_ops import HostPageArena
+    from repro_torch.kernels import host_pages as hp
+    dev = "cuda"
+    n_slots = n + 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pools = [torch.randn((n_slots, page, kv, hd), device=dev, generator=g)
+             for _ in range(2 * layers)]
+    rng = np.random.default_rng(seed)
+    slots = rng.permutation(n_slots)[:n].tolist()
+    table = hp.pool_table(pools)
+    shape = (n, 2 * layers, page, kv, hd)
+    stage, ref = torch.empty(shape, device=dev), torch.empty(shape, device=dev)
+    hp.host_pages(stage, pools, slots, True, table)
+    hp.host_pages_plain(ref, pools, slots, True)
+    torch.cuda.synchronize()
+    if not torch.equal(stage, ref):
+        fail(f"{name}: gather differs from the plain version")
+    dst = rng.permutation(n_slots)[:n].tolist()
+    a, b = [p.clone() for p in pools], [p.clone() for p in pools]
+    hp.host_pages(stage, a, dst, False)
+    hp.host_pages_plain(stage, b, dst, False)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{name}: scatter differs from the plain version")
+    del a, b
+    times = timings(lambda: hp.host_pages(stage, pools, slots, True, table),
+                    lambda: hp.host_pages_plain(ref, pools, slots, True), None,
+                    flush=l2_flush(dev), plain_reps=10)
+    page_bytes = stage[0].nbytes
+    bms, by = bound_ms(2 * n * page_bytes, 0, torch.float32)
+    # the whole move, as the arena issues it, against one large pinned copy
+    host = torch.empty(shape, pin_memory=True)
+    addrs = host.data_ptr() + page_bytes * np.arange(n, dtype=np.int64)
+    staging = torch.empty((HostPageArena.STAGE_PAGES,) + shape[1:], device=dev)
+    copies = hp.move_pages.copies
+    hp.move_pages(staging, pools, table, slots, addrs, True)
+    torch.cuda.synchronize()
+    if not torch.equal(host, ref.cpu()):
+        fail(f"{name}: the move to the host differs from the plain gather")
+    n_copies = hp.move_pages.copies - copies
+    d2h = time_ms(lambda: hp.move_pages(staging, pools, table, slots, addrs, True), reps=10)
+    h2d = time_ms(lambda: hp.move_pages(staging, pools, table, slots, addrs, False),
+                  reps=10)
+    d2h_ref = time_ms(lambda: host.copy_(ref, non_blocking=True), reps=10)
+    h2d_ref = time_ms(lambda: ref.copy_(host, non_blocking=True), reps=10)
+    gb = n * page_bytes / 1e9
+    rec = dict(max_abs_err=0.0, bound_ms=bms, bound_by=by, pages=n,
+               page_bytes=page_bytes, move_d2h_ms=d2h, move_h2d_ms=h2d,
+               pinned_copy_d2h_ms=d2h_ref, pinned_copy_h2d_ms=h2d_ref,
+               move_copies=n_copies, **times)
+    log(f"  {name}: bit-exact  {times_text(times)}  bound {bms:.4f} ms ({by}; "
+        f"{100 * bms / times['device_ms']:.1f}% of the device time); the move of "
+        f"{gb:.3f} GB ({n_copies} copies a move): to the host {d2h:.3f} ms "
+        f"({gb / d2h * 1e3:.1f} GB/s), back {h2d:.3f} ms ({gb / h2d * 1e3:.1f} GB/s); "
+        f"one pinned copy_ of the same bytes {d2h_ref:.3f} ms ({gb / d2h_ref * 1e3:.1f} "
+        f"GB/s) and {h2d_ref:.3f} ms ({gb / h2d_ref * 1e3:.1f} GB/s)")
+    return rec
+
+
 def phase_kernels():
     log("phase 2: kernels against their plain versions on the card (ms: CUDA "
         "events around one call, the wrapper's host cost included whenever "
         "the card waits for it; device: the summed time of the kernels the "
         "call launches, torch.profiler)")
     recs = {}
+    for n in (45, 140):
+        recs[("host_pages", n)] = host_pages_case(
+            f"host_pages granite 40 layers f32 pool, {n} pages", n, seed=20 + n)
+        gc.collect()
+        torch.cuda.empty_cache()
     for dt in (torch.float32, torch.bfloat16):
         tag = str(dt)[6:]
         recs[("ssd", "mamba2", dt)] = ssd_case(
@@ -801,10 +876,11 @@ def off_path():
     plain versions' calls on CUDA tensors there, are left out of the main
     path's counts."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import host_pages as hp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
     wrappers = (fa.flash_attention, pa.paged_attention, pa.paged_attention_partials,
-                ssd.ssd_scan)
+                ssd.ssd_scan, hp.host_pages)
     before = [w.launches for w in wrappers]
     plain_before = dict(PLAIN_CUDA_CALLS)
     try:
@@ -3310,6 +3386,7 @@ def main():
         return 2
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import host_pages as hp
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -3346,7 +3423,8 @@ def main():
     # beside its serving runs are off the path (``off_path``)
     wrappers = {"paged": (pa, "paged_attention"),
                 "paged_partials": (pa, "paged_attention_partials"),
-                "flash": (fa, "flash_attention"), "ssd": (ssd, "ssd_scan")}
+                "flash": (fa, "flash_attention"), "ssd": (ssd, "ssd_scan"),
+                "host_pages": (hp, "host_pages")}
     plain_cuda_calls = PLAIN_CUDA_CALLS
 
     def counting(fn, key):
@@ -3357,7 +3435,9 @@ def main():
 
     for key, (mod, fn) in wrappers.items():
         setattr(mod, fn + "_plain", counting(getattr(mod, fn + "_plain"), key))
-    main_paths = [(4, "granite-3-8b", phase_granite, ("paged", "flash")),
+    # granite's pressured runs (zero-restore, legacy, os-swap) move pages
+    # to the host arena and back through the host-tier kernel
+    main_paths = [(4, "granite-3-8b", phase_granite, ("paged", "flash", "host_pages")),
                   (5, "gemma3-4b", phase_gemma, ("paged", "flash")),
                   (6, "hymba-1.5b", phase_hymba, ("paged", "flash", "ssd")),
                   (7, "mamba2-2.7b", phase_mamba2, ("ssd",)),
@@ -3442,6 +3522,11 @@ def main():
                  replaces="src/repro/kernels/ssd_scan.py:25",
                  launches=launches["ssd"], **d),
         ]
+        for n in (45, 140):
+            kernels.append(dict(name="host_pages", route="cuda",
+                                source="src/repro_torch/csrc/host_pages.cu",
+                                replaces=None, launches=launches["host_pages"],
+                                **recs[("host_pages", n)]))
     if path_recs.get(12) is not None:
         kernels.append(dict(name="paged_attention_partials", route="cuda",
                             source="src/repro_torch/csrc/paged_attention.cu",

@@ -9,15 +9,20 @@ is the PyTorch form of the same "no pool-sized copy" contract).  A caller
 that needs the old bytes snapshots them with ``.clone()`` first.  The
 control plane (pool.py/tiers.py) decides *which* slots, the data plane only
 moves bytes.  Index tensors are int64; the decode kernel reads the block
-table as int32 (``repro_torch.kernels.paged_attention``).
+table as int32 (``repro_torch.kernels.paged_attention``).  The host tier's
+KV pages live in a ``HostPageArena``: one contiguous block of pinned
+memory per page for all paged layers, moved by ``kernels/host_pages.py``.
 """
 from __future__ import annotations
 
+import heapq
 from typing import List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import spans
+from repro_torch.kernels import host_pages as hp
 
 
 class KVPool(NamedTuple):
@@ -144,6 +149,151 @@ def insert_blocks(pool: KVPool, ks, vs, slots) -> KVPool:
 
 # -- host tier ----------------------------------------------------------------
 
+class HostPageArena:
+    """The host tier's store of KV pages: page-major host memory, pinned
+    when the pools are on the card.
+
+    One arena slot holds one logical page's bytes for every paged layer:
+    the ``R = 2 x (paged layers)`` rows of ``kernels/host_pages.py``'s
+    layout (layer 0's K, layer 0's V, ...), contiguous, so that a page
+    crosses PCIe as one copy.  ``store`` moves pool slots' pages into free
+    arena slots and returns their ids; ``load`` moves arena slots back into
+    pool slots and frees them; ``free`` frees without reading.  Ids are
+    handed out lowest first, so a batch's slots tend to be adjacent and its
+    copies few (one per run of adjacent slots).
+
+    The arena takes its geometry from the first pools it moves and
+    allocates nothing before: it grows by chunks of ``CHUNK_BYTES`` (at
+    least one page) when a store finds too few free slots (span
+    ``host_arena.grow``, the slots added), and never shrinks.  On the card
+    a move is ``host_pages.move_pages``: the gather or scatter kernel for
+    all layers and the copies, through a staging buffer of ``STAGE_PAGES``
+    pages on the card (made at the first move), on the current stream, with
+    no wait.  Every later reader or writer of those pool slots, arena slots
+    or the staging buffer runs on the same stream, so stream order is the
+    guarantee; the arena waits for its last move only when it is freed, so
+    that its pinned memory never goes back to the allocator under a copy.
+    On the CPU the same moves go through ``host_pages``' plain version.
+    Span ``host_tier.issue`` of each move carries its bytes.  ``capacity``,
+    ``in_use`` and ``peak`` count slots."""
+
+    STAGE_PAGES = 64        # one launch's pages
+    CHUNK_BYTES = 1 << 28   # a power of two: the pinned allocator rounds to one
+
+    def __init__(self):
+        self.chunks: List[torch.Tensor] = []    # (chunk_slots, R, *row)
+        self._bases = np.empty(0, np.int64)     # each chunk's host address
+        self._free: List[int] = []              # heap of free slot ids
+        self.capacity = self.in_use = self.peak = 0
+        self._row = None            # (R, row shape, dtype, device)
+        self.chunk_slots = 0
+        self.slot_bytes = 0
+        self._table = None          # (pool addresses, their device table)
+        self._stage = None
+        self._done = None           # an event after the last move
+
+    def __del__(self):
+        done = getattr(self, "_done", None)
+        if done is not None:
+            done.synchronize()
+
+    def _bind(self, pools: Sequence[torch.Tensor]) -> None:
+        if pools:
+            p = pools[0]
+            geom = (len(pools), tuple(p.shape[1:]), p.dtype, p.device)
+        else:                       # a model with no paged layer
+            geom = (0, (), None, None)
+        if self._row is None:
+            self._row = geom
+            self.slot_bytes = len(pools) * pools[0][0].nbytes if pools else 0
+            self.chunk_slots = max(1, self.CHUNK_BYTES // self.slot_bytes) \
+                if self.slot_bytes else 0
+        elif geom != self._row:
+            raise ValueError(f"pools of {geom} in an arena of {self._row}")
+
+    def _grow(self, need: int) -> None:
+        rows, row, dtype, device = self._row
+        per = self.chunk_slots or need      # pages of no bytes take no memory
+        add = -(-need // per)
+        with spans.span("host_arena.grow", n=add * per):
+            for _ in range(add):
+                if rows:
+                    c = torch.empty((per, rows) + row, dtype=dtype,
+                                    pin_memory=device.type == "cuda")
+                    self.chunks.append(c)
+                    self._bases = np.append(self._bases, c.data_ptr())
+                # ids above every free one: appended, the heap stays a heap
+                self._free.extend(range(self.capacity, self.capacity + per))
+                self.capacity += per
+
+    def _take(self, n: int) -> List[int]:
+        if len(self._free) < n:
+            self._grow(n - len(self._free))
+        ids = [heapq.heappop(self._free) for _ in range(n)]
+        self.in_use += n
+        self.peak = max(self.peak, self.in_use)
+        return ids
+
+    def free(self, ids: Sequence[int]) -> None:
+        for i in ids:
+            heapq.heappush(self._free, i)
+        self.in_use -= len(ids)
+
+    def view(self, sid: int) -> torch.Tensor:
+        """Arena slot ``sid``'s page: ``(R, *row)`` on the host."""
+        return self.chunks[sid // self.chunk_slots][sid % self.chunk_slots]
+
+    def _move(self, pools, ids, slots, to_host: bool) -> None:
+        n = len(ids)
+        if not n or not self.slot_bytes:
+            return
+        with spans.span("host_tier.issue", n=n * self.slot_bytes):
+            if pools[0].is_cuda:
+                self._move_on_card(pools, ids, slots, to_host)
+                return
+            stage = torch.empty((n, self._row[0]) + self._row[1],
+                                dtype=self._row[2])
+            if to_host:
+                hp.host_pages(stage, pools, slots, True)
+                for page, sid in zip(stage, ids):
+                    self.view(sid).copy_(page)
+            else:
+                for page, sid in zip(stage, ids):
+                    page.copy_(self.view(sid))
+                hp.host_pages(stage, pools, slots, False)
+
+    def _move_on_card(self, pools, ids, slots, to_host: bool) -> None:
+        addrs = tuple(p.data_ptr() for p in pools)
+        if self._table is None or self._table[0] != addrs:
+            self._table = (addrs, hp.pool_table(pools))
+        if self._stage is None:
+            self._stage = torch.empty(
+                (self.STAGE_PAGES, self._row[0]) + self._row[1],
+                dtype=self._row[2], device=self._row[3])
+            self._done = torch.cuda.Event()
+        ids = np.asarray(ids, np.int64)
+        host = self._bases[ids // self.chunk_slots] \
+            + (ids % self.chunk_slots) * self.slot_bytes
+        hp.move_pages(self._stage, pools, self._table[1], slots, host, to_host)
+        self._done.record(torch.cuda.current_stream(self._row[3]))
+
+    def store(self, pools: Sequence[torch.Tensor], slots) -> List[int]:
+        """Copy the pages of pool slots ``slots`` (all ``pools``, the R
+        rows in order) into free arena slots; returns their ids."""
+        self._bind(pools)
+        ids = self._take(len(slots))
+        self._move(pools, ids, slots, True)
+        return ids
+
+    def load(self, pools: Sequence[torch.Tensor], ids: Sequence[int],
+             slots) -> None:
+        """Copy arena slots ``ids`` into pool slots ``slots`` (distinct)
+        and free the arena slots."""
+        self._bind(pools)
+        self._move(pools, ids, slots, False)
+        self.free(ids)
+
+
 def to_host_tier_many(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Spill tensors to the host memory tier.
 
@@ -169,17 +319,6 @@ def to_host_tier_many(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         for s in streams.values():
             s.synchronize()
     return out
-
-
-def stack_host_tier(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Stack host-tier blobs along a new first axis, into pinned memory
-    when the blobs are pinned, so that the batch's copy to the device stays
-    asynchronous as each blob's own would be.  Span ``host_tier.stack``
-    carries the bytes stacked."""
-    with spans.span("host_tier.stack", n=len(xs) * xs[0].nbytes):
-        out = torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
-                          pin_memory=xs[0].is_pinned())
-        return torch.stack(list(xs), out=out)
 
 
 def to_host_tier(x: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,7 @@ The lifecycle both owners follow::
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.core.page_table import Tier
 
@@ -172,17 +172,21 @@ class HostTier(PageTier):
     """Host-DRAM KV blobs, one per spilled page (pinned-host analogue).
 
     ``blobs[page]`` holds whatever the owner spilled — the serve engine
-    stores ``{layer: (k, v)}`` numpy pairs.  This is the placement target of
-    the background flush: a demoted page gains a host copy here ("clean")
-    without losing its device residency, so restore still repoints.
+    stores the page's slot id in its ``device_ops.HostPageArena``.  This is
+    the placement target of the background flush: a demoted page gains a
+    host copy here ("clean") without losing its device residency, so
+    restore still repoints.  ``release``, when given, is called with the
+    list of blobs that ``drop`` forgets or ``put`` replaces, so that their
+    owner can reuse what they hold; ``pop`` hands its blob to the caller.
     """
 
     tier = Tier.HOST
     name = "host"
 
-    def __init__(self):
-        self.blobs: Dict[int, dict] = {}
+    def __init__(self, release: Optional[Callable[[list], None]] = None):
+        self.blobs: Dict[int, object] = {}
         self.puts = 0
+        self.release = release
 
     def __contains__(self, page: int) -> bool:
         return page in self.blobs
@@ -191,6 +195,9 @@ class HostTier(PageTier):
         return len(self.blobs)
 
     def put(self, page: int, blob) -> None:
+        old = self.blobs.get(page)
+        if old is not None and self.release is not None:
+            self.release([old])
         self.blobs[page] = blob
         self.puts += 1
 
@@ -202,8 +209,11 @@ class HostTier(PageTier):
         return self.blobs.get(page)
 
     def drop(self, pages: Iterable[int]) -> int:
-        n = 0
+        gone = []
         for pg in pages:
-            if self.blobs.pop(pg, None) is not None:
-                n += 1
-        return n
+            b = self.blobs.pop(pg, None)
+            if b is not None:
+                gone.append(b)
+        if gone and self.release is not None:
+            self.release(gone)
+        return len(gone)

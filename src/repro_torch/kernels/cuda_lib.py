@@ -106,6 +106,11 @@ def load() -> ctypes.CDLL:
     lib.valet_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                    i, p]
     lib.valet_ssd_scan.restype = i
+    q = ctypes.c_longlong
+    lib.valet_host_pages.argtypes = [p, p, i, p, i, q, i, p, p]
+    lib.valet_host_pages.restype = i
+    lib.valet_host_pages_move.argtypes = [p, p, p, i, p, i, i, q, i, p, p]
+    lib.valet_host_pages_move.restype = i
     _lib = lib
     return lib
 

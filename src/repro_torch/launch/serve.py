@@ -8,7 +8,9 @@ unless ``--device cpu``.
 seed 0 as the reference's ``PRNGKey(0)``, and the prompts are drawn from
 ``default_rng(0)``.  The printed lines are the reference's, and the third
 ends in what only the port counts: the bytes the engine moved from the
-card to the host tier and back (``EngineStats.d2h_bytes``/``h2d_bytes``).
+card to the host tier and back (``EngineStats.d2h_bytes``/``h2d_bytes``),
+the host arena's pages (``arena=`` in use / capacity, ``peak=`` in use)
+and the launches of the kernel that moves them (``host_pages=``).
 
 ``--dryrun`` runs the sharded serve step of ``--shape`` for one rank of
 the production mesh on the meta device (``launch/dryrun.py``) and writes
@@ -63,15 +65,19 @@ def main(argv=None):
     for _ in range(args.requests):
         eng.submit(rng.integers(2, cfg.vocab, size=args.prompt_len),
                    args.max_new)
+    from repro_torch.kernels import host_pages as hp
+    launches = hp.host_pages.launches
     reqs = eng.run()
-    s = eng.stats
+    s, arena = eng.stats, eng.arena
     print(f"policy={args.policy} requests={len(reqs)} "
           f"done={sum(r.status == 'done' for r in reqs)} tokens={s.tokens}")
     print(f"steps={s.steps} pauses={s.pauses} spilled={s.spilled_pages} "
           f"restored={s.restored_pages} recomputes={s.recomputes}")
     print(f"sim_time={s.sim_time_us / 1e3:.2f}ms "
           f"bg_time={s.bg_time_us / 1e3:.2f}ms wall={s.wall_time_s:.2f}s "
-          f"d2h={s.d2h_bytes / 1e6:.3f}MB h2d={s.h2d_bytes / 1e6:.3f}MB")
+          f"d2h={s.d2h_bytes / 1e6:.3f}MB h2d={s.h2d_bytes / 1e6:.3f}MB "
+          f"arena={arena.in_use}/{arena.capacity} peak={arena.peak} "
+          f"host_pages={hp.host_pages.launches - launches}")
     for r in reqs[:4]:
         print(f"  req{r.rid}: {r.tokens_out[:8]}...")
     return 0

@@ -23,11 +23,14 @@ table (``kernels/paged_attention.py``), restore needs no bulk copy:
 ``_restore`` repoints block-table entries at pool slots whose bytes survived
 preemption untouched (validated against the pool's per-slot generation
 counter) and streams only the pages whose slot was reused in the meantime,
-one host read each, in one batched pool write per paged layer
-(``_stream_in``).  The host blobs live in a
-``HostTier`` fed by the background flush.  ``zero_restore=False`` keeps the
-legacy bulk spill/restore as the comparison baseline (and ``os-swap`` /
-``infiniswap`` keep their defining eager/delete behavior either way).
+all of them moved in one batch (``_stream_in``).  The host copies live in
+a ``HostTier`` fed by the background flush; each page's bytes, every paged
+layer's K and V together, sit in one slot of a pinned, page-major
+``device_ops.HostPageArena``, so that a flush or a stream-in moves whole
+pages on the copy engines, issued on the current stream with no wait.
+``zero_restore=False`` keeps the legacy bulk spill/restore as the
+comparison baseline (and ``os-swap`` / ``infiniswap`` keep their defining
+eager/delete behavior either way).
 
 The data plane stays exact: demoted pages come back bit-identically
 (repointed bytes never moved; streamed ones round-trip through pinned host
@@ -188,9 +191,10 @@ class ValetServeEngine:
         # the KV page store's tiers: the device tier tracks demoted-but-
         # resident pages (bytes still in their released pool slot, validated
         # lazily against the pool's generation counter); the host tier holds
-        # the spilled blobs the background flush writes back
+        # the spilled pages the background flush writes back (arena slots)
         self.device = DeviceTier()
-        self.host = HostTier()
+        self.arena = dev.HostPageArena()
+        self.host = HostTier(release=self.arena.free)
         self._flush_q: deque = deque()   # demoted pages awaiting write-back
         self.flush_batch = flush_batch
         self.stats = EngineStats()
@@ -273,25 +277,31 @@ class ValetServeEngine:
 
     # --------------------------------------------------------------- paging
 
-    def _pool_pages_to_host(self, slots) -> Dict[int, tuple]:
-        """Gather ``slots`` of every paged layer into pinned host memory
-        (one batched copy per layer and one synchronisation)."""
-        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.torch_device)
-        xs = []
+    def _kv_pools(self) -> List[torch.Tensor]:
+        """The paged layers' pools in the arena's row order: layer by
+        layer, K then V."""
+        out = []
         for li in self.paged_layers:
             pool = self.caches["layers"][li]["pool"]
-            xs += [pool.k[idx], pool.v[idx]]
-        hs = dev.to_host_tier_many(xs)
-        self.stats.d2h_bytes += sum(h.nbytes for h in hs)
-        return {li: (hs[2 * i], hs[2 * i + 1])
-                for i, li in enumerate(self.paged_layers)}
+            out += [pool.k, pool.v]
+        return out
+
+    def _pool_pages_to_host(self, pages, slots) -> None:
+        """Copy the pages in pool ``slots`` of every paged layer into the
+        host arena and put each into the host tier under its logical page
+        in ``pages``.  The copies are issued, not waited for."""
+        ids = self.arena.store(self._kv_pools(), slots)
+        self.stats.d2h_bytes += len(ids) * self.arena.slot_bytes
+        for pg, sid in zip(pages, ids):
+            self.host.put(pg, sid)
 
     def _note_allocated(self, slots) -> None:
         """Fresh data is about to land in ``slots``: evict any demoted page
         still shadowed there.  Clean pages (host copy already flushed) just
-        lose device residency; dirty ones are extracted to the host tier
-        NOW — a forced synchronous copy charged to the critical path,
-        because the overwrite cannot wait for the lazy flush."""
+        lose device residency; dirty ones are copied to the host tier NOW —
+        a forced copy charged to the critical path, because the overwrite
+        cannot wait for the lazy flush (it is issued on the stream ahead of
+        the overwrite, which stream order keeps behind it)."""
         if not self.device.shadow:
             return
         pairs = self.device.evict_slots(slots)
@@ -300,10 +310,8 @@ class ValetServeEngine:
         dirty = [(pg, sl) for pg, sl in pairs if pg not in self.host]
         if dirty:
             with spans.span("engine.evict_dirty", n=len(dirty)):
-                layer_kv = self._pool_pages_to_host([sl for _, sl in dirty])
-                for i, (pg, _) in enumerate(dirty):
-                    self.host.put(pg, {li: (kv[0][i], kv[1][i])
-                                       for li, kv in layer_kv.items()})
+                self._pool_pages_to_host([pg for pg, _ in dirty],
+                                         [sl for _, sl in dirty])
             self.stats.sim_time_us += self.costs.host_write * len(dirty)
             self.stats.flushed_pages += len(dirty)
         # every evicted page is host-resident now: retier DEVICE -> HOST
@@ -316,7 +324,7 @@ class ValetServeEngine:
         """Background write-back daemon: secure host copies for up to
         ``budget`` demoted pages (all of them when ``None``).  A flushed
         page becomes *clean* — it keeps device residency (still repointable
-        for free) and gains a host blob, so a later slot reuse costs
+        for free) and gains a host copy, so a later slot reuse costs
         nothing.  Charged off the critical path: ``bg_time_us`` in sync
         mode, the daemon clock (+ ``daemon_us``) in async mode."""
         q = self._flush_q
@@ -335,10 +343,7 @@ class ValetServeEngine:
                     slots.append(sl)
             if not todo:
                 return 0
-            layer_kv = self._pool_pages_to_host(slots)
-            for i, pg in enumerate(todo):
-                self.host.put(pg, {li: (kv[0][i], kv[1][i])
-                                   for li, kv in layer_kv.items()})
+            self._pool_pages_to_host(todo, slots)
             sp.set(len(todo))
         m = len(todo)
         self.stats.flushed_pages += m
@@ -393,14 +398,17 @@ class ValetServeEngine:
 
         The coordinator calls this in the middle of a co-tenant's lease,
         i.e. inside the co-tenant's ``step()``.  The flush's device-to-host
-        copies are complete when it returns (``to_host_tier_many``
-        synchronises).  The shrink marks the shed slots UNBACKED, so the
-        device tier no longer validates them (``free_gen`` is None), and
-        re-backing them later bumps their generations: a restore of those
-        pages streams them from their host blobs and never repoints at a
-        slot whose bytes may have changed.  A blob is not written again
-        after the flush, and the pinned-memory allocator keeps a dropped
-        blob's memory until the stream's copy out of it has completed."""
+        copies are issued on the current stream and not waited for: every
+        later writer of the shed slots (a co-tenant's prefill or append into
+        a slot it leased) and every reader of the arena slots (a stream-in)
+        runs on the same stream, after them.  The shrink marks the shed
+        slots UNBACKED, so the device tier no longer validates them
+        (``free_gen`` is None), and re-backing them later bumps their
+        generations: a restore of those pages streams them from their host
+        copies and never repoints at a slot whose bytes may have changed.
+        An arena slot is not written again until it is freed, and a later
+        flush's copy into a freed slot is ordered on the stream after the
+        stream-in that read it."""
         self._flush_demoted(None)
         return self.pool.shrink_by(n_pages)
 
@@ -462,9 +470,9 @@ class ValetServeEngine:
         """Bring a paused sequence's pages back into the pool.
 
         Zero-restore mode repoints every page whose old slot is untouched
-        and streams only pages whose slot was reused, one host read each,
-        batched into one pool write per paged layer.  Legacy mode keeps the bulk
-        per-layer ``local_write_batch`` scatter over the whole sequence.
+        and streams only pages whose slot was reused from the host arena,
+        in one batch (``_stream_in``).  Legacy mode streams the whole
+        sequence the same way.
         Either way the restored bytes are bit-identical."""
         if not req.pages:
             return True
@@ -539,19 +547,14 @@ class ValetServeEngine:
     def _stream_in(self, pages: List[int], slots: List[int]) -> None:
         """Bring ``pages`` back from the host tier into ``slots`` (a
         zero-restore's streamed pages, or a legacy restore's every page):
-        every blob is popped first, in ``pages`` order, then each paged
-        layer takes one stacked ``local_write_batch``.  The bytes are those
-        of one ``device_ops.stream_page`` per page and layer, moved in one
-        copy and one scatter per layer."""
-        blobs = [self.host.pop(pg) for pg in pages]
-        idx = torch.as_tensor(np.asarray(slots, np.int64),
-                              device=self.torch_device)
-        for li in self.paged_layers:
-            ks = dev.stack_host_tier([b[li][0] for b in blobs])
-            vs = dev.stack_host_tier([b[li][1] for b in blobs])
-            self.stats.h2d_bytes += ks.nbytes + vs.nbytes
-            self.caches["layers"][li]["pool"] = dev.local_write_batch(
-                self.caches["layers"][li]["pool"], ks, vs, idx)
+        their arena slots are popped, in ``pages`` order, and moved into the
+        pool slots of every paged layer in one batch (``HostPageArena.load``:
+        on the card the copies and one scatter launch per 64 pages), then
+        freed.  The bytes are those of one ``device_ops.stream_page`` per
+        page and layer."""
+        ids = [self.host.pop(pg) for pg in pages]
+        self.arena.load(self._kv_pools(), ids, slots)
+        self.stats.h2d_bytes += len(ids) * self.arena.slot_bytes
 
     # ------------------------------------------------------------ scheduling
 
@@ -851,12 +854,9 @@ class ValetServeEngine:
                 self.stats.demoted_pages += m
                 self.stats.spilled_pages += m
             elif live.size:
-                # legacy bulk spill: one gather + host transfer per paged
-                # layer, then grouped release / unmap / remote-map
-                layer_kv = self._pool_pages_to_host(live_slots)
-                for i, pg in enumerate(live.tolist()):
-                    self.host.put(pg, {li: (kv[0][i], kv[1][i])
-                                       for li, kv in layer_kv.items()})
+                # legacy bulk spill: the pages into the host arena, then
+                # grouped release / unmap / remote-map
+                self._pool_pages_to_host(live.tolist(), live_slots.tolist())
                 self.pool.release_batch(live_slots.tolist())
                 self.gpt.unmap_local_batch(live)
                 m = int(live.size)

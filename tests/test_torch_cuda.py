@@ -11,7 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import device_ops as dev  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import host_pages as hp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
@@ -499,3 +501,65 @@ def test_cuda_ssd_scan_gradients_at_sharded_train_shapes(cuda, b, s, h, p, g, n,
     step: its block of SSD heads."""
     test_cuda_ssd_scan_gradients_match_plain_autograd(cuda, b, s, h, p, g, n,
                                                       chunk, dtype)
+
+
+# host-tier page moves: (paged layers, page, KV heads, head_dim) of granite's
+# and hymba's f32 pools
+HOST_GEOMS = {"granite": (40, 16, 8, 128), "hymba": (3, 16, 5, 64)}
+
+
+def host_pools(name, n_slots, cuda, seed=0):
+    layers, page, kv, hd = HOST_GEOMS[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn((n_slots, page, kv, hd), device=cuda, generator=g)
+            for _ in range(2 * layers)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("granite", 45), ("granite", 140),
+                                    ("hymba", 70)])
+def test_cuda_host_pages_kernel_matches_plain(cuda, name, n):
+    """Gather and scatter bit-exact against the plain version, over more
+    pages than one launch takes."""
+    pools = host_pools(name, n + 20, cuda)
+    rng = np.random.default_rng(n)
+    slots = rng.permutation(n + 20)[:n].tolist()
+    shape = (n, len(pools)) + tuple(pools[0].shape[1:])
+    stage, ref = (torch.empty(shape, device=cuda) for _ in range(2))
+    before = hp.host_pages.launches
+    hp.host_pages(stage, pools, slots, True)
+    assert hp.host_pages.launches - before == -(-n // 64)
+    hp.host_pages_plain(ref, pools, slots, True)
+    torch.cuda.synchronize()
+    assert torch.equal(stage, ref)
+    dst = rng.permutation(n + 20)[:n].tolist()
+    a, b = [p.clone() for p in pools], [p.clone() for p in pools]
+    hp.host_pages(stage, a, dst, False)
+    hp.host_pages_plain(stage, b, dst, False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(HOST_GEOMS))
+def test_cuda_host_arena_round_trip_is_exact(cuda, name):
+    """Pages through pinned arena chunks and a staging buffer smaller than
+    the batch come back bit-exactly, with fewer copies than pages."""
+    pools = host_pools(name, 96, cuda, seed=1)
+    before = [p.clone() for p in pools]
+    slot = len(pools) * pools[0][0].nbytes
+    arena = dev.HostPageArena()
+    arena.STAGE_PAGES, arena.CHUNK_BYTES = 16, 24 * slot
+    slots = list(range(5, 55))
+    copies = hp.move_pages.copies
+    ids = arena.store(pools, slots)
+    assert arena.chunks[0].is_pinned() and arena.capacity == 72
+    assert hp.move_pages.copies - copies < len(slots)
+    for p in pools:
+        p.zero_()
+    dst = list(range(90, 40, -1))
+    arena.load(pools, ids, dst)
+    torch.cuda.synchronize()
+    for d, s in zip(dst, slots):
+        assert all(torch.equal(p[d], q[s]) for p, q in zip(pools, before))
+    assert arena.in_use == 0

@@ -2,13 +2,15 @@
 CPU, f32): the same tokens and the same ``EngineStats`` under pool pressure
 for valet and os-swap (the other policies are in ``test_torch_engine_*.py``),
 bit-exact KV round trips through preemption in both restore modes, and
-the zero-restore stream-in batched into one pool write per paged layer."""
+the zero-restore stream-in batched into one move out of the host arena for
+every paged layer."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import device_ops as dev  # noqa: E402
 from repro_torch.core.policies import POLICIES  # noqa: E402
+from repro_torch.kernels import host_pages as hp  # noqa: E402
 from repro_torch.serve import ValetServeEngine  # noqa: E402
 from torch_parity import (CTX, assert_same_engines, assert_same_stats,  # noqa: E402
                           both, make_setup, run)
@@ -111,46 +113,57 @@ def test_coordinator_registers_and_leases(setup):
 
 
 class PerPageEngine(ValetServeEngine):
-    """The stream-in as one ``stream_page`` per page and layer: the data
-    plane's per-page primitive, against which the batched write is held
-    (counting the bytes it moves to the device, as the engine does)."""
+    """The stream-in as one ``stream_page`` per page and layer, each reading
+    its layer's K and V rows of the page's arena slot: the data plane's
+    per-page primitive, against which the batched move is held (counting
+    the bytes it moves to the device, as the engine does)."""
 
     def _stream_in(self, pages, slots):
         for pg, sl in zip(pages, slots):
-            blob = self.host.pop(pg)
-            for li in self.paged_layers:
+            sid = self.host.pop(pg)
+            rows = self.arena.view(sid)
+            for i, li in enumerate(self.paged_layers):
                 self.caches["layers"][li]["pool"] = dev.stream_page(
-                    self.caches["layers"][li]["pool"], blob[li][0],
-                    blob[li][1], sl)
-                self.stats.h2d_bytes += blob[li][0].nbytes + blob[li][1].nbytes
+                    self.caches["layers"][li]["pool"], rows[2 * i],
+                    rows[2 * i + 1], sl)
+                self.stats.h2d_bytes += rows[2 * i].nbytes + rows[2 * i + 1].nbytes
+            self.arena.free([sid])
 
 
 def test_zero_restore_streams_in_one_batched_write_per_layer(setup,
                                                              monkeypatch):
-    """Under pressure a zero-restore streams its reused pages in one
-    ``local_write_batch`` per paged layer (no per-page ``stream_page``), and
-    leaves the same tokens, ``EngineStats`` and pool bytes as the per-page
-    stream-in on the same trace."""
+    """Under pressure a zero-restore streams its reused pages in one batch
+    for every paged layer at once (one ``host_pages`` scatter out of the
+    host arena, no per-page ``stream_page``), and leaves the same tokens,
+    ``EngineStats`` and pool bytes as the per-page stream-in, reading each
+    layer's rows of the arena slot, on the same trace."""
     _, _, tcfg, tparams, prompts = setup
-    calls = {"local_write_batch": 0, "stream_page": 0}
-    for name in calls:
-        def counted(*a, _fn=getattr(dev, name), _name=name, **kw):
-            calls[_name] += 1
-            return _fn(*a, **kw)
-        monkeypatch.setattr(dev, name, counted)
+    calls = {"scatter": 0, "stream_page": 0}
+    real_stream_page, real_host_pages = dev.stream_page, hp.host_pages
+
+    def stream_page(*a, **kw):
+        calls["stream_page"] += 1
+        return real_stream_page(*a, **kw)
+
+    def host_pages(stage, pools, slots, to_stage, table=None):
+        calls["scatter"] += not to_stage
+        return real_host_pages(stage, pools, slots, to_stage, table)
+    monkeypatch.setattr(dev, "stream_page", stream_page)
+    monkeypatch.setattr(hp, "host_pages", host_pages)
     restores = []
 
     class Counting(ValetServeEngine):
         def _stream_in(self, pages, slots):
-            before = calls["local_write_batch"]
+            before = calls["scatter"]
             super()._stream_in(pages, slots)
-            restores.append((len(pages), calls["local_write_batch"] - before))
+            restores.append((len(pages), calls["scatter"] - before))
 
     outs, eng = run(Counting, tparams, tcfg, CTX, prompts, POLICIES, "valet",
                     10, device="cpu")
     assert eng.stats.streamed_pages > 0 and calls["stream_page"] == 0
     assert sum(n for n, _ in restores) == eng.stats.streamed_pages
-    assert all(w == len(eng.paged_layers) for _, w in restores)
+    assert all(w == 1 for _, w in restores)
+    assert eng.arena.in_use == len(eng.host)
 
     ref_outs, ref_eng = run(PerPageEngine, tparams, tcfg, CTX, prompts,
                             POLICIES, "valet", 10, device="cpu")

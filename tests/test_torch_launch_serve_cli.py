@@ -4,7 +4,8 @@ arguments: reduced granite-3-8b, 6 requests under a pool of 10 slots, the
 reference's weights (its ``init_params(PRNGKey(0))``, carried over through
 ``bridge``) and prompts (``default_rng(0)`` in both).  Every printed line
 is equal but for ``wall=`` and the port's own ``d2h=``/``h2d=``, which
-must be the engine's byte counters.  And ``--dryrun``: one rank's decode cell on
+must be the engine's byte counters, and its host arena's ``arena=``,
+``peak=`` and ``host_pages=`` (no launch on the CPU).  And ``--dryrun``: one rank's decode cell on
 the meta device, an ``ok`` record, exit 0."""
 import json
 import re
@@ -26,11 +27,14 @@ def _lines(text):
 
 
 def _host_bytes(lines):
-    """The port's ``d2h=``/``h2d=`` (MB) taken off the third line."""
-    m = re.search(r" d2h=(\S+)MB h2d=(\S+)MB$", lines[2])
+    """The port's ``d2h=``/``h2d=`` (MB) and its arena's pages in use,
+    capacity, peak and kernel launches, taken off the third line."""
+    m = re.search(r" d2h=(\S+)MB h2d=(\S+)MB arena=(\d+)/(\d+) peak=(\d+) "
+                  r"host_pages=(\d+)$", lines[2])
     assert m, lines[2]
     lines[2] = lines[2][:m.start()]
-    return float(m.group(1)), float(m.group(2))
+    return (float(m.group(1)), float(m.group(2)),
+            tuple(int(m.group(i)) for i in range(3, 7)))
 
 
 def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
@@ -60,12 +64,14 @@ def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
     monkeypatch.setattr(serve_pkg, "ValetServeEngine", keep)
     assert serve.main(ARGS + ["--device", "cpu"]) == 0
     got = _lines(capsys.readouterr().out)
-    d2h, h2d = _host_bytes(got)
+    d2h, h2d, arena = _host_bytes(got)
     assert len(want) == 7 and want[0].startswith("policy=valet requests=6")
     assert got == want
     st = engines[0].stats
     assert (d2h, h2d) == (round(st.d2h_bytes / 1e6, 3), round(st.h2d_bytes / 1e6, 3))
     assert st.d2h_bytes > 0 and st.h2d_bytes > 0
+    a = engines[0].arena
+    assert arena == (a.in_use, a.capacity, a.peak, 0) and a.peak > 0
     assert "pauses=0 " not in want[1]          # the pool was under pressure
 
 
