@@ -68,7 +68,13 @@ and the argument bytes of the same cell run on meta; then the port's
 ``examples/policy_comparison_torch.py`` (every policy exact) and
 ``examples/fault_tolerance_torch.py`` (the restore exact, no page lost)
 on the card, and every shape the phase gave a kernel against its plain
-version.  Each main path runs with every kernel's launch count
+version.  Phase 16 serves full-width granite-4.0-h-small (6 of 40 layers:
+5 Mamba-2 and 1 NoPE attention, each with a dropless MoE over 18 of 72
+experts) with and without pressure, tokens held equal, after holding a
+dropless MoE call's counted entries to those routed to the held experts
+and a decode row's bits to the rest of its batch; phase 2 times the
+dropless MoE's grouped GEMM at that model's decode and prefill shapes.
+Each main path runs with every kernel's launch count
 set to 0 just before it and read just after, and fails unless each of its
 kernels launched and no plain version ran on a CUDA tensor.  Any failed
 phase exits non-zero.
@@ -102,7 +108,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_BF16_ABS_ERR = 1e-3
 # calls of each kernel's plain version on CUDA tensors (main() counts them)
 PLAIN_CUDA_CALLS = {"paged": 0, "paged_partials": 0, "flash": 0, "ssd": 0,
-                    "host_pages": 0}
+                    "host_pages": 0, "moe_gemm": 0}
 
 
 def log(*a):
@@ -573,12 +579,101 @@ def host_pages_case(name, n, seed, layers=40, page=16, kv=8, hd=128):
     return rec
 
 
+def moe_routing(t, seed, experts=72, k=10, held=18, f=768):
+    """The dropless MoE's groups for ``t`` rows routed top-``k`` over
+    ``experts`` by random logits, the first ``held`` experts held here, by
+    the path's own ``models.moe.groups``: (offsets, rows, counts, n_max,
+    block_m)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    moe = MoEConfig(n_experts=experts, top_k=k, d_expert=f, dropless=True,
+                    held_first=0, held_count=held)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    eids = torch.randn((t, experts), device="cuda", generator=g).topk(k, dim=-1).indices
+    _, order, counts, offsets, n_max, bm = M.groups(eids, moe)
+    return offsets, (order // k).to(torch.int32), counts, n_max, bm
+
+
+def grouped_mm_library(x, offsets, rows, entries, wg, wu, wd):
+    """The same two products by ``torch._grouped_mm`` (the library's
+    grouped GEMM, a yardstick only: the port never calls it) over the
+    gathered rows, or None where this torch has none or it refuses."""
+    gmm = getattr(torch, "_grouped_mm", None)
+    if gmm is None:
+        return None, "torch has no _grouped_mm"
+    ends = offsets[1:].contiguous()
+    col = lambda w: w.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def lib(wg=wg, wu=wu, wd=wd):
+        a = x[rows[:entries].long()]
+        h = torch.nn.functional.silu(gmm(a, wg, offs=ends).float()).to(a.dtype) * \
+            gmm(a, wu, offs=ends)
+        return gmm(h, wd, offs=ends)
+    for layout in (lambda w: w, col):
+        try:
+            ws = [layout(w) for w in (wg, wu, wd)]
+            lib(*ws)
+            torch.cuda.synchronize()
+            return (lambda: lib(*ws)), None
+        except (RuntimeError, NotImplementedError, TypeError) as e:   # refused
+            why = str(e).splitlines()[0][:120]
+    return None, why
+
+
+def moe_case(name, t, seed, d=4096, f=768, held=18):
+    """One dropless MoE call's two grouped products (gate-up with the
+    SwiGLU, then down) at granite-4.0-h-small's widths over ``t`` rows
+    routed top-10 over 72 experts, 18 held: the kernel against its plain
+    version, twice bit for bit, and timed beside its bound (the held
+    experts' weights that got rows and the rows in and out, or 6 d f FLOPs
+    an entry) and ``torch._grouped_mm``."""
+    from repro_torch.kernels import moe_gemm as mg
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf16 = torch.bfloat16
+    x = torch.randn((t, d), device="cuda", generator=g).to(bf16)
+    wg, wu = ((torch.randn((held, d, f), device="cuda", generator=g) / d ** 0.5).to(bf16)
+              for _ in range(2))
+    wd = (torch.randn((held, f, d), device="cuda", generator=g) / f ** 0.5).to(bf16)
+    offsets, rows, counts, n_max, bm = moe_routing(t, seed, held=held, f=f)
+    entries, groups = int(counts.sum()), int((counts > 0).sum())
+
+    def run():
+        h = mg.moe_gemm(x, offsets, wg, wu, rows=rows, n_rows=n_max, block_m=bm)
+        return mg.moe_gemm(h, offsets, wd, n_rows=n_max + 1, block_m=bm)
+
+    def plain():
+        h = mg.moe_gemm_plain(x, offsets, wg, wu, rows=rows, n_rows=n_max)
+        return mg.moe_gemm_plain(h, offsets, wd, n_rows=n_max + 1)
+    y, y_ref = run(), plain()
+    torch.cuda.synchronize()
+    assert_close(name, y[:entries], y_ref[:entries], bf16)
+    assert_repeatable(name, [y[:entries]], [run()[:entries]])
+    lib, why = grouped_mm_library(x, offsets, rows, entries, wg, wu, wd)
+    times = timings(run, plain, lib, plain_reps=5)
+    n_bytes = groups * 3 * d * f * 2 + entries * (2 * d + 2 * f) * 2
+    bms, by = bound_ms(n_bytes, 6 * d * f * entries, bf16)
+    err = max_err(y[:entries], y_ref[:entries])
+    log(f"  {name}: {entries} entries in {groups} groups (block_m {bm}): err {err:.3e}  "
+        f"{times_text(times)}  bound {bms:.4f} ms ({by})"
+        + (f"; library: {why}" if lib is None else ""))
+    return dict(max_abs_err=err, bound_ms=bms, bound_by=by, entries=entries,
+                groups=groups, **times)
+
+
 def phase_kernels():
     log("phase 2: kernels against their plain versions on the card (ms: CUDA "
         "events around one call, the wrapper's host cost included whenever "
         "the card waits for it; device: the summed time of the kernels the "
         "call launches, torch.profiler)")
     recs = {}
+    # the dropless MoE's grouped GEMM at granite-4.0-h-small's decode (128
+    # rows) and prefill (2048 tokens) shapes
+    recs[("moe", "decode")] = moe_case(
+        "moe_gemm granite-4.0-h-small decode T128 top-10 of 72, 18 held, d4096 f768", 128,
+        seed=22)
+    recs[("moe", "prefill")] = moe_case(
+        "moe_gemm granite-4.0-h-small prefill T2048 top-10 of 72, 18 held, d4096 f768",
+        2048, seed=23)
     for n in (45, 140):
         recs[("host_pages", n)] = host_pages_case(
             f"host_pages granite 40 layers f32 pool, {n} pages", n, seed=20 + n)
@@ -877,10 +972,11 @@ def off_path():
     path's counts."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import host_pages as hp
+    from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
     wrappers = (fa.flash_attention, pa.paged_attention, pa.paged_attention_partials,
-                ssd.ssd_scan, hp.host_pages)
+                ssd.ssd_scan, hp.host_pages, mg.moe_gemm)
     before = [w.launches for w in wrappers]
     plain_before = dict(PLAIN_CUDA_CALLS)
     try:
@@ -3242,6 +3338,116 @@ def phase_sharded_training():
 ROOFLINE_WARM = 1            # steps before the timed one
 
 
+# --------------------------------------------------------------------------
+# Phase 16: granite-4.0-h-small, Mamba-2 and attention layers with a
+# dropless MoE over one chip's share of the experts
+# --------------------------------------------------------------------------
+
+G4H_LAYERS = 6            # the first 6 of 40: 5 Mamba-2 layers and 1 NoPE attention
+
+
+def granite4h_model(n_layers, seed):
+    """The benchmark's granite-4.0-h-small configuration (its ``port``
+    block: full widths, 18 of 72 experts held, Granite's multipliers) cut
+    to its first ``n_layers`` layers, with bf16 weights from ``seed``."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import transformer as T
+    path = Path(__file__).resolve().parent / "valetbench" / "configs" / \
+        "granite-4.0-h-small.json"
+    with open(path) as fh:
+        c = json.load(fh)
+    port = dict(c["port"], n_layers=n_layers,
+                layer_pattern=c["port"]["layer_pattern"][:n_layers])
+    cfg = ArchConfig(name=c["name"], **port)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+    return cfg, params, T.ParallelCtx(remat=False, compute_dtype=torch.bfloat16)
+
+
+def dropless_check(cfg, params, t=128):
+    """One MoE layer's dropless call at the cell's decode shape (``t`` rows,
+    a quarter of them inactive): the entries counted on the device are
+    those the router sends to the held experts from active rows, and row
+    0's output keeps its bits with the other rows holding other states,
+    inactive, and on a repeat."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.decode import layer_infos, layer_params
+    info = next(i for i in layer_infos(cfg) if i.ffn == "moe")
+    p = layer_params(params, info)["moe"]
+    moe = cfg.moe
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((t, cfg.d_model), device="cuda", generator=g).to(torch.bfloat16)
+    active = torch.rand((t,), device="cuda", generator=g) > 0.25
+    active[0] = True
+    counts = []
+    with M.tally(counts):
+        out = M.moe_ffn_dropless(p, x, moe, active=active, with_aux=False)
+    eids = M.router_topk(p, x, moe)[0]
+    mine = (eids >= moe.held_first) & (eids < moe.held_first + moe.held) & active[:, None]
+    want = torch.bincount((eids[mine] - moe.held_first), minlength=moe.held)
+    if not torch.equal(counts[0], want):
+        fail(f"dropless MoE: entries counted {counts[0].tolist()} are not those routed "
+             f"to the held experts {want.tolist()}")
+    other = torch.randn((t, cfg.d_model), device="cuda", generator=g).to(torch.bfloat16)
+    other[0] = x[0]
+    alone = torch.zeros_like(active)
+    alone[0] = True
+    for what, xs, act in (("with the other rows changed", other, active),
+                          ("with the other rows inactive", x, alone),
+                          ("on a repeat", x.clone(), active)):
+        got = M.moe_ffn_dropless(p, xs, moe, active=act, with_aux=False)[0]
+        if not torch.equal(got, out[0]):
+            fail(f"dropless MoE: row 0 differs {what} (max abs diff "
+                 f"{max_err(got, out[0]):.3e})")
+    log(f"  dropless MoE check (layer {info.seg}.{info.idx}, {t} rows, "
+        f"{int(active.sum())} active): {int(want.sum())} entries routed to the "
+        f"{moe.held} held experts, all counted and computed; row 0 bit-identical "
+        f"with the other rows changed, inactive and on a repeat")
+
+
+def phase_granite4h():
+    log(f"phase 16: full-width granite-4.0-h-small ({G4H_LAYERS} of 40 layers: 5 "
+        "Mamba-2, 1 NoPE attention; in each a dropless MoE over experts 0-17 of 72, "
+        "top-10, and the shared expert), Granite's multipliers, bf16, f32 KV pool")
+    cfg, params, ctx = granite4h_model(G4H_LAYERS, seed=16)
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  params {n / 1e9:.3f} B")
+    with off_path():
+        dropless_check(cfg, params)
+    rng = np.random.default_rng(16)
+    lens = [int(x) for x in rng.choice([128, 512, 1100], size=12)]
+    prompts = [rng.integers(2, cfg.vocab, size=x) for x in lens]
+    geom = dict(max_batch=8, max_seq=1152, page=16, max_new=32)
+    slots, need = pressured_slots(prompts, geom["max_batch"], geom["page"])
+    log(f"  prompts {lens}; the first 8 need {need} pages, pressured at {slots}")
+    torch.cuda.reset_peak_memory_stats()
+    ref = None
+    for label, s in (("no pressure", 640), ("valet zero-restore", slots)):
+        outs, st, wall = run_engine(params, cfg, ctx, prompts, policy="valet",
+                                    pool_slots=s, device="cuda", **geom)
+        log(f"  granite-4.0-h-small {label} ({s} slots): "
+            f"{sum(len(o) for o in outs)} tokens in {wall:.3f} s wall; {stats_line(st)}; "
+            f"moe entries {st.moe_entries} groups {st.moe_groups}")
+        if st.moe_entries <= 0 or st.moe_groups <= 0:
+            fail(f"granite-4.0-h-small {label}: no MoE entries counted")
+        if ref is None:
+            ref = outs
+        elif outs != ref:
+            fail(f"granite-4.0-h-small {label}: tokens differ from the unpressured run")
+        elif st.pauses <= 0:
+            fail(f"granite-4.0-h-small {label}: pressure did not preempt")
+    log(f"  granite-4.0-h-small: tokens identical under pressure; "
+        f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    gm = {k: v for k, v in geom.items() if k != "max_new"}
+    with off_path():
+        profile_decode("granite-4.0-h-small", cfg, params, ctx, prompts, pool_slots=640,
+                       **gm)
+        profile_prefill("granite-4.0-h-small", cfg, params, ctx,
+                        rng.integers(2, cfg.vocab, size=1100))
+    del params
+    torch.cuda.empty_cache()
+
+
 def example_module(name):
     """``examples/<name>.py`` of this checkout, imported by path."""
     import importlib.util
@@ -3377,7 +3583,7 @@ def _leaves(tree):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -3387,6 +3593,7 @@ def main():
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import host_pages as hp
+    from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
 
@@ -3424,7 +3631,7 @@ def main():
     wrappers = {"paged": (pa, "paged_attention"),
                 "paged_partials": (pa, "paged_attention_partials"),
                 "flash": (fa, "flash_attention"), "ssd": (ssd, "ssd_scan"),
-                "host_pages": (hp, "host_pages")}
+                "host_pages": (hp, "host_pages"), "moe_gemm": (mg, "moe_gemm")}
     plain_cuda_calls = PLAIN_CUDA_CALLS
 
     def counting(fn, key):
@@ -3469,7 +3676,12 @@ def main():
                   # and decode through paged (the dry run itself runs the
                   # plain versions on meta tensors)
                   (15, "dry-run roofline mamba2-2.7b and the examples", phase_dryrun,
-                   ("paged", "flash", "ssd"))]
+                   ("paged", "flash", "ssd")),
+                  # the Mamba-2 layers prefill on the SSD kernel, the attention
+                  # layer on flash and paged, every layer's experts on the
+                  # grouped GEMM
+                  (16, "granite-4.0-h-small", phase_granite4h,
+                   ("paged", "flash", "ssd", "moe_gemm"))]
     path_recs = {}
     launches = dict.fromkeys(wrappers, 0)
     for num, name, run_path, used in main_paths:
@@ -3527,6 +3739,11 @@ def main():
                                 source="src/repro_torch/csrc/host_pages.cu",
                                 replaces=None, launches=launches["host_pages"],
                                 **recs[("host_pages", n)]))
+        for shape in ("decode", "prefill"):
+            kernels.append(dict(name="moe_gemm", shape=shape, route="cuda",
+                                source="src/repro_torch/csrc/moe_gemm.cu",
+                                replaces=None, launches=launches["moe_gemm"],
+                                **recs[("moe", shape)]))
     if path_recs.get(12) is not None:
         kernels.append(dict(name="paged_attention_partials", route="cuda",
                             source="src/repro_torch/csrc/paged_attention.cu",

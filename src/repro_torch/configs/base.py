@@ -22,6 +22,19 @@ class MoEConfig:
     router_aux_coef: float = 0.01  # load-balance aux loss coefficient
     router_z_coef: float = 1e-3    # router z-loss coefficient
     renorm_topk: bool = False      # renormalize top-k gates to sum to 1
+    # The port's dropless path (``models.moe.moe_ffn_dropless``): every row
+    # is routed over all ``n_experts`` and no entry is dropped (no
+    # capacity); the layer holds and computes experts
+    # [held_first, held_first + held_count) only, one chip's share of an
+    # expert-parallel deployment (0: all of them).
+    dropless: bool = False
+    held_first: int = 0
+    held_count: int = 0
+
+    @property
+    def held(self) -> int:
+        """Experts this layer holds on the dropless path."""
+        return self.held_count or self.n_experts
 
 
 @dataclass(frozen=True)
@@ -69,6 +82,40 @@ class ArchConfig:
     norm_eps: float = 1e-5
     notes: str = ""
 
+    # The port's own (absent in every registered arch) ------------------
+    # a layer-by-layer pattern of mixers, "attn" or "ssm" per layer, each
+    # with the FFN of ``moe`` (else a SwiGLU of ``d_ff``); () keeps the
+    # family's pattern
+    layer_pattern: Tuple[str, ...] = ()
+    # Granite's multipliers; None issues no operation.  The embeddings are
+    # scaled by ``embedding_multiplier``, every residual branch (mixer and
+    # FFN) by ``residual_multiplier`` before its add, the attention scores
+    # by ``attention_multiplier`` in place of 1/sqrt(head_dim), and the
+    # logits divided by ``logits_scaling``.
+    embedding_multiplier: Optional[float] = None
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logits_scaling: Optional[float] = None
+
+    def __post_init__(self):
+        # a configuration read from JSON gives ``moe``/``ssm`` as dicts and
+        # the pattern as a list
+        if isinstance(self.moe, dict):
+            object.__setattr__(self, "moe", MoEConfig(**self.moe))
+        if isinstance(self.ssm, dict):
+            object.__setattr__(self, "ssm", SSMConfig(**self.ssm))
+        pattern = tuple(self.layer_pattern)
+        object.__setattr__(self, "layer_pattern", pattern)
+        if pattern:
+            if len(pattern) != self.n_layers:
+                raise ValueError(f"layer_pattern has {len(pattern)} layers, "
+                                 f"n_layers is {self.n_layers}")
+            bad = sorted(set(pattern) - {"attn", "ssm"})
+            if bad:
+                raise ValueError(f"layer_pattern kinds must be attn or ssm, not {bad}")
+            if "ssm" in pattern and self.ssm is None:
+                raise ValueError("layer_pattern has ssm layers and no ssm config")
+
     # Derived -------------------------------------------------------------
     @property
     def padded_vocab(self) -> int:
@@ -106,11 +153,12 @@ class ArchConfig:
             n += v * d                              # unembed
         hd = self.resolved_head_dim
         for layer in range(self.n_layers):
-            if self.family != "ssm":
+            kind = self.layer_pattern[layer] if self.layer_pattern else None
+            if (kind or self.family) != "ssm":
                 # attention
                 n += d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
                 n += (self.n_heads * hd) * d
-            if self.ssm is not None:
+            if self.ssm is not None and kind != "attn":
                 d_in = self.ssm.expand * d
                 n += d * (2 * d_in + 2 * self.ssm.n_groups * self.ssm.d_state)
                 n += d_in * d + d_in * self.ssm.conv_kernel

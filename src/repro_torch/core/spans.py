@@ -9,6 +9,7 @@ and end in ns, the index of the enclosing open span (its parent), the
 as the site says).  A span opened with ``step=`` sets the step index of
 itself and of every span inside it; the others take their parent's.
 ``take()`` returns the records and clears them; nothing is written out.
+``mark(name, rid, n)`` records a span of no length, for a count.
 
 Every stamp comes from ``now_ns``, on the clock that the profiler's
 ``KinetoEvent.start_ns`` reads (the Unix epoch in ns), so that a span and
@@ -100,6 +101,16 @@ def span(name: str, rid: int = -1, n: int = 0, step: int = -1):
     if not _on:
         return _OFF
     return _Live(name, rid, n, step)
+
+
+def mark(name: str, rid: int = -1, n: int = 0) -> None:
+    """A record of no length, now, inside the open span: a count ``n``
+    that the host learns after the work it counts (one read back from the
+    device with a step's tokens)."""
+    if _on:
+        parent = _open[-1] if _open else -1
+        t = now_ns()
+        _recs.append((name, t, t, parent, _recs[parent][4] if _open else -1, rid, n))
 
 
 def enable() -> None:

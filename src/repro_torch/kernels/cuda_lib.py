@@ -111,6 +111,8 @@ def load() -> ctypes.CDLL:
     lib.valet_host_pages.restype = i
     lib.valet_host_pages_move.argtypes = [p, p, p, i, p, i, i, q, i, p, p]
     lib.valet_host_pages_move.restype = i
+    lib.valet_moe_gemm.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, p]
+    lib.valet_moe_gemm.restype = i
     _lib = lib
     return lib
 

@@ -9,8 +9,10 @@ seed 0 as the reference's ``PRNGKey(0)``, and the prompts are drawn from
 ``default_rng(0)``.  The printed lines are the reference's, and the third
 ends in what only the port counts: the bytes the engine moved from the
 card to the host tier and back (``EngineStats.d2h_bytes``/``h2d_bytes``),
-the host arena's pages (``arena=`` in use / capacity, ``peak=`` in use)
-and the launches of the kernel that moves them (``host_pages=``).
+the host arena's pages (``arena=`` in use / capacity, ``peak=`` in use),
+the launches of the kernel that moves them (``host_pages=``) and the
+dropless MoE's entries and expert groups computed
+(``EngineStats.moe_entries``/``moe_groups``: ``moe=`` entries / groups).
 
 ``--dryrun`` runs the sharded serve step of ``--shape`` for one rank of
 the production mesh on the meta device (``launch/dryrun.py``) and writes
@@ -77,7 +79,8 @@ def main(argv=None):
           f"bg_time={s.bg_time_us / 1e3:.2f}ms wall={s.wall_time_s:.2f}s "
           f"d2h={s.d2h_bytes / 1e6:.3f}MB h2d={s.h2d_bytes / 1e6:.3f}MB "
           f"arena={arena.in_use}/{arena.capacity} peak={arena.peak} "
-          f"host_pages={hp.host_pages.launches - launches}")
+          f"host_pages={hp.host_pages.launches - launches} "
+          f"moe={s.moe_entries}/{s.moe_groups}")
     for r in reqs[:4]:
         print(f"  req{r.rid}: {r.tokens_out[:8]}...")
     return 0

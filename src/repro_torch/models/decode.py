@@ -27,8 +27,9 @@ gathered copy; prefill attention is the flash kernel
 cross-attention and whisper's encoder with ``Sk != Sq``; the SSM prefill's
 scan is the SSD kernel (``kernels/ssd_scan.py``, through ``models/ssm.py``).
 SSM decode, a decode step's cross-attention over the static cross K/V and
-the MoE dispatch (``models/moe.py``) are plain PyTorch (the reference has no
-kernel for them).  On CPU tensors every kernel
+the capacity-bounded MoE dispatch (``models/moe.py``) are plain PyTorch (the
+reference has no kernel for them); the dropless MoE's expert products are
+the grouped-GEMM kernel (``kernels/moe_gemm.py``).  On CPU tensors every kernel
 runs its plain PyTorch version.
 """
 from __future__ import annotations
@@ -46,11 +47,13 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import combine_partials, decode_partial
 from repro_torch.models.layers import (apply_rope, gelu_mlp, matmul, rms_norm,
                                        swiglu)
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_ffn, moe_ffn_dropless
 from repro_torch.models.transformer import (ParallelCtx, _sinusoidal,
                                             add_mixer, encode, mask_vocab_pad,
-                                            segments, sinusoidal_at,
-                                            unembed_matrix, xgate)
+                                            scale_embed, scale_logits, scale_q,
+                                            scale_residual, segments,
+                                            sinusoidal_at, unembed_matrix,
+                                            xgate)
 
 
 @dataclass(frozen=True)
@@ -131,7 +134,7 @@ def _qkv_one(p, x, cfg, positions):
     """x: (B, d) -> q (B,Hq,hd), k,v (B,Hkv,hd), roped at ``positions``."""
     b, d = x.shape
     hd = cfg.resolved_head_dim
-    q = matmul(x, p["wq"]).reshape(b, cfg.n_heads, hd)
+    q = scale_q(matmul(x, p["wq"]), cfg).reshape(b, cfg.n_heads, hd)
     k = matmul(x, p["wk"]).reshape(b, cfg.n_kv_heads, hd)
     v = matmul(x, p["wv"]).reshape(b, cfg.n_kv_heads, hd)
     if cfg.rope_theta > 0:
@@ -195,10 +198,15 @@ def _cross_attn_step(p, x, cache, cfg):
     return _attn_out(p, out, b)
 
 
-def _ffn_step(p, x, cfg: ArchConfig, info: LayerInfo):
+def _ffn_step(p, x, cfg: ArchConfig, info: LayerInfo, active=None):
     """x: (T, d).  MoE routes all T rows in one call (T = the batch in
     decode, inactive rows too; B * S in prefill): the capacity, and so
-    what is dropped, depends on T, as in the reference."""
+    what is dropped, depends on T, as in the reference.  The dropless
+    path drops nothing and computes experts for the ``active`` rows only
+    (every row without it), so a row's output depends on no other row."""
+    if info.ffn == "moe" and cfg.moe.dropless:
+        return moe_ffn_dropless(p["moe"], x, cfg.moe, active=active,
+                                with_aux=False)
     if info.ffn == "moe":
         return moe_ffn(p["moe"], x[:, None, :], cfg.moe)[0][:, 0, :]
     if info.ffn == "gelu":
@@ -230,7 +238,8 @@ def decode_layer(p, x, info: LayerInfo, cache, cfg: ArchConfig,
             x = x + _cross_attn_step(p["xattn"], hx, new_cache, cfg)
     if info.ffn != "none":
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + _ffn_step(p, h2, cfg, info)
+        x = x + scale_residual(_ffn_step(p, h2, cfg, info, step_args["active"]),
+                               cfg)
     return x, new_cache
 
 
@@ -244,7 +253,7 @@ def decode_step(params, caches, tokens, cfg: ArchConfig, ctx: ParallelCtx,
     """
     device = caches["lengths"].device
     tokens = torch.as_tensor(tokens, device=device)
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    x = scale_embed(params["embed"][tokens].to(ctx.compute_dtype), cfg)
     lengths = caches["lengths"]
     if cfg.family == "audio":
         # sinusoidal position at each sequence's current length
@@ -276,7 +285,7 @@ def decode_step(params, caches, tokens, cfg: ArchConfig, ctx: ParallelCtx,
 
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     w = unembed_matrix(params, cfg).to(x.dtype)
-    logits = mask_vocab_pad(matmul(x, w).float(), cfg)
+    logits = mask_vocab_pad(scale_logits(matmul(x, w).float(), cfg), cfg)
     new_len = lengths + active.to(torch.int32)
     return logits, {"layers": new_layers, "lengths": new_len}
 
@@ -316,7 +325,7 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
     tokens = torch.as_tensor(tokens, device=device)
     b, s = tokens.shape
     hd = cfg.resolved_head_dim
-    x = params["embed"][tokens].to(ctx.compute_dtype)
+    x = scale_embed(params["embed"][tokens].to(ctx.compute_dtype), cfg)
     enc_out = None
     if cfg.family == "audio":
         if frontend is None:
@@ -337,7 +346,7 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
         a = y = None
         if info.kind in ("attn", "dec", "hybrid"):
             ap = p["attn"]
-            q = matmul(h, ap["wq"]).reshape(b, s, cfg.n_heads, hd)
+            q = scale_q(matmul(h, ap["wq"]), cfg).reshape(b, s, cfg.n_heads, hd)
             k = matmul(h, ap["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
             v = matmul(h, ap["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
             if cfg.rope_theta > 0:
@@ -377,13 +386,13 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
                 x = x + _cross_prefill(p["xattn"], hx, enc_out, cache, cfg)
         if info.ffn != "none":
             h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-            x = x + _ffn_step(p, h2.reshape(b * s, -1), cfg,
-                              info).reshape(b, s, -1)
+            x = x + scale_residual(_ffn_step(p, h2.reshape(b * s, -1), cfg,
+                                             info).reshape(b, s, -1), cfg)
         new_layers.append(cache)
 
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     w = unembed_matrix(params, cfg).to(x.dtype)
-    logits = mask_vocab_pad(matmul(x[:, -1], w).float(), cfg)
+    logits = mask_vocab_pad(scale_logits(matmul(x[:, -1], w).float(), cfg), cfg)
     return logits, {"layers": new_layers,
                     "lengths": torch.full((b,), s, dtype=torch.int32,
                                           device=device)}

@@ -1,6 +1,6 @@
 """Mixture-of-experts FFN (PyTorch) with expert parallelism.
 
-Two paths, as in the reference:
+Two paths, as in the reference, and the port's own dropless path (last):
 
 * ``moe_ffn_reference`` — exact loop-over-experts oracle (no capacity drops).
 * ``moe_ffn`` — capacity-bounded sort-based dispatch (the reference's
@@ -36,13 +36,36 @@ What the port keeps bit for bit from the reference, and how:
 
 The expert products are batched matmuls over a (E, cap + 1, d) buffer, as
 the reference's einsums are; no Pallas kernel belongs to MoE.
+
+The dropless path, ``moe_ffn_dropless`` (``MoEConfig.dropless``; the
+reference has no such path): every row is routed over all ``n_experts``,
+and no entry is dropped, for there is no capacity.  The layer holds experts
+[``held_first``, ``held_first + held_count``), one chip's share of an
+expert-parallel deployment, and computes only the entries routed to them;
+what the other shares' experts would add is left out, and the shared
+experts are added whole.  The held entries are sorted by expert (stably,
+so each expert's rows keep token order) into ragged row groups whose
+offsets stay on the device (``groups``), and each of the two expert products is one
+grouped-GEMM launch over those groups (``kernels/moe_gemm.py``): the host
+never learns a group's size.  With ``active`` (a decode step's rows that
+serve a sequence) the other rows' entries are left out before the sort,
+so they cost no expert work.  The router runs over every row of the call,
+as one product of one shape; each computed row is scaled by its gate in
+place, and each row's k choices are gathered and summed in a fixed order:
+a row's result depends on no other row of its call.  Each call's per-expert entry counts are handed, on the device, to
+the innermost open ``tally`` (the serving engine reads them back with the
+step's tokens); the host time of a call is the span ``moe.layer``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import spans
+from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.layers import matmul, model_ranks, normal_, swiglu
 
 
@@ -57,8 +80,10 @@ def init_moe(d: int, moe: MoEConfig, n_layers: int, *,
              generator: torch.Generator, dtype=torch.float32, device="cuda"):
     """The ``moe`` subtree of ``n_layers`` stacked layers with the
     reference's shapes, dtypes and scales: an f32 router at 0.006, experts
-    and shared experts at 0.02.  Filled layer by layer in place."""
-    e_pad, f = padded_experts(moe), moe.d_expert
+    and shared experts at 0.02.  Filled layer by layer in place.  A
+    dropless layer's tables hold its ``held`` experts, unpadded."""
+    e_pad = moe.held if moe.dropless else padded_experts(moe)
+    f = moe.d_expert
     empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     params = {
         "router": torch.empty((n_layers, d, moe.n_experts),
@@ -80,9 +105,8 @@ def init_moe(d: int, moe: MoEConfig, n_layers: int, *,
     return params
 
 
-def _route(params, x, moe: MoEConfig):
-    """(eids, gates, probs, per-row expert indicator, per-row lse^2) of the
-    router over x (T, d)."""
+def _topk(params, x, moe: MoEConfig):
+    """(eids, gates, probs, logits) of the router over x (T, d)."""
     logits = x.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)
     # stable descending sort: on a tie the lower expert index comes first
@@ -90,6 +114,13 @@ def _route(params, x, moe: MoEConfig):
     gates, eids = gates[:, :moe.top_k], eids[:, :moe.top_k]
     if moe.renorm_topk:
         gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    return eids, gates, probs, logits
+
+
+def _route(params, x, moe: MoEConfig):
+    """(eids, gates, probs, per-row expert indicator, per-row lse^2) of the
+    router over x (T, d)."""
+    eids, gates, probs, logits = _topk(params, x, moe)
     ind = F.one_hot(eids, moe.n_experts).float().sum(1)              # (T,E)
     return eids, gates, probs, ind, torch.logsumexp(logits, dim=-1) ** 2
 
@@ -239,3 +270,88 @@ def moe_ffn(params, x, moe: MoEConfig, *, mesh=None, model_axis="model",
     if squeeze:
         out = out[0]
     return out, aux
+
+
+# --------------------------------------------------------------------------
+# Dropless path: one chip's held share, ragged groups, no capacity
+# --------------------------------------------------------------------------
+
+_tallies: list = []         # the open tallies, innermost last
+
+
+@contextlib.contextmanager
+def tally(into: list):
+    """Within the block, each dropless call appends its held experts'
+    entry counts ((held,) int64, on the device) to ``into``."""
+    _tallies.append(into)
+    try:
+        yield into
+    finally:
+        _tallies.pop()
+
+
+def groups(eids, moe: MoEConfig, active=None):
+    """The ragged row groups of a dropless call whose rows chose experts
+    ``eids`` (T, k): its held entries sorted by expert, in token order
+    within an expert; every other entry (not held, or a row not in
+    ``active``) takes the key ``held`` and sorts past them, never computed.
+    Returns (key, order, counts, offsets, n_max, block_m): the sorted keys
+    and the entries' order ((T k,)), the held experts' entry counts
+    ((held,) int64) and their offsets ((held + 1,) int32), all on the
+    device; the bound on the entries computed, and the kernel's row tile."""
+    t, k, held = eids.shape[0], moe.top_k, moe.held
+    local = eids - moe.held_first
+    mine = (local >= 0) & (local < held)
+    if active is not None:
+        mine = mine & active[:, None]
+    key, order = torch.sort(torch.where(mine, local, held).reshape(-1), stable=True)
+    counts = torch.bincount(key, minlength=held + 1)[:held]
+    offsets = F.pad(torch.cumsum(counts, 0), (1, 0)).to(torch.int32)
+    # a row's k choices are distinct experts: at most min(k, held) of them
+    # are held, which bounds the entries computed; the host never learns
+    # how many are
+    n_max = t * min(k, held)
+    # the kernel's row tile: 64 where an expert's mean share of the rows
+    # (t k / n_experts) passes 48
+    block_m = 64 if t * k > 48 * moe.n_experts else 32
+    return key, order, counts, offsets, n_max, block_m
+
+
+def moe_ffn_dropless(params, x, moe: MoEConfig, *, active=None,
+                     with_aux=True):
+    """Routed (held share) + shared expert FFN with no drops.  x: (B, S, d)
+    or (T, d); ``active``: (T,) bool, the rows whose entries are computed
+    (all without it).  Returns (out in x's dtype, aux loss) with
+    ``with_aux``, else out.  The aux loss is ``moe_ffn``'s over every
+    row and every expert."""
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)
+    t, k, held = xt.shape[0], moe.top_k, moe.held
+    with spans.span("moe.layer", n=t):
+        eids, gates, probs, logits = _topk(params, xt, moe)
+        key, order, counts, offsets, n_max, bm = groups(eids, moe, active)
+        if _tallies:
+            _tallies[-1].append(counts)
+        ex = params["experts"]
+        h = moe_gemm(xt, offsets, ex["wg"], ex["wu"],
+                     rows=(order // k).to(torch.int32), n_rows=n_max, block_m=bm)
+        y = moe_gemm(h, offsets, ex["wd"], n_rows=n_max + 1, block_m=bm)
+        # each computed row times its gate, in f32 and rounded once, in
+        # place; the rows past the held entries are never read
+        y[:n_max].mul_(gates.reshape(-1)[order[:n_max]].unsqueeze(1))
+        y[n_max:].zero_()                  # the row every other entry reads
+        # back to (token, choice) order: sorted entry i is output row i
+        pos = torch.arange(t * k, device=xt.device)
+        entry_row = torch.empty_like(order)
+        entry_row[order] = torch.where(key < held, pos, n_max)
+        # one reduction over k (summed in f32), in a fixed order, no atomics
+        out = y[entry_row].view(t, k, d).sum(1).to(x.dtype)
+        if moe.n_shared:
+            out = out + swiglu(params["shared"], xt)
+        out = out.reshape(shape)
+    if not with_aux:
+        return out
+    ind = F.one_hot(eids, moe.n_experts).float().sum(1)
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    return out, _aux(moe, ind.mean(0) / moe.top_k, probs.mean(0), lse2.mean())

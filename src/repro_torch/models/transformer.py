@@ -10,7 +10,10 @@ segment lists.
 Every kind of the reference is here: ``attn`` (dense, sliding-window, and
 with a SwiGLU, GELU or MoE FFN), ``ssm`` (mamba2), ``hybrid`` (hymba's
 parallel attention and SSD heads), ``xattn`` (llama-vision's gated
-cross-attention layers), ``enc`` and ``dec`` (whisper).  ``lm_loss`` is the
+cross-attention layers), ``enc`` and ``dec`` (whisper).  An arch with a
+``layer_pattern`` (granite-4.0-h-small's Mamba-2 and NoPE attention layers,
+each with an MoE FFN) becomes one segment per run of like layers, and
+Granite's multipliers apply where the arch sets them.  ``lm_loss`` is the
 training objective: the mean next-token NLL over sequence chunks, with
 each layer and each loss chunk recomputed in the backward when
 ``ParallelCtx.remat`` is set.
@@ -176,6 +179,18 @@ def segments(cfg: ArchConfig) -> List[Segment]:
 
 
 def _segments(cfg: ArchConfig) -> List[Segment]:
+    if cfg.layer_pattern:
+        # one segment per run of like layers of the pattern, each layer with
+        # the arch's FFN
+        ffn = "moe" if cfg.moe is not None else "swiglu"
+        segs = []
+        for kind in cfg.layer_pattern:
+            if segs and segs[-1].kind == kind:
+                segs[-1] = Segment(kind, segs[-1].count + 1, ffn=ffn)
+            else:
+                segs.append(Segment(kind, 1, ffn=ffn))
+        return segs
+
     if cfg.family == "ssm":
         return [Segment("ssm", cfg.n_layers, ffn="none")]
 
@@ -434,6 +449,36 @@ def param_pspecs(params_shape, cfg: ArchConfig, model_size: int = 16):
 
 
 # --------------------------------------------------------------------------
+# Granite's multipliers (``ArchConfig``): each is an operation only where
+# the arch sets it
+# --------------------------------------------------------------------------
+
+def scale_embed(x, cfg: ArchConfig):
+    """The token embeddings times ``embedding_multiplier``."""
+    m = cfg.embedding_multiplier
+    return x if m is None else x * m
+
+
+def scale_q(q, cfg: ArchConfig):
+    """The queries pre-scaled so that the kernels' 1/sqrt(head_dim) gives
+    scores scaled by ``attention_multiplier``."""
+    m = cfg.attention_multiplier
+    return q if m is None else q * (m * math.sqrt(cfg.resolved_head_dim))
+
+
+def scale_residual(out, cfg: ArchConfig):
+    """A residual branch's output times ``residual_multiplier``."""
+    m = cfg.residual_multiplier
+    return out if m is None else out * m
+
+
+def scale_logits(logits, cfg: ArchConfig):
+    """The f32 logits over ``logits_scaling``."""
+    m = cfg.logits_scaling
+    return logits if m is None else logits / m
+
+
+# --------------------------------------------------------------------------
 # Layer application (full forward)
 # --------------------------------------------------------------------------
 
@@ -456,7 +501,7 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
     tp, mesh, ax = ctx.tp, ctx.mesh, ctx.model_axis
     q_shardable = cfg.n_heads % tp == 0
     kv_shardable = cfg.n_kv_heads % tp == 0
-    q = col_parallel(x, p["wq"], cfg.n_heads * hd, mesh, ax)
+    q = scale_q(col_parallel(x, p["wq"], cfg.n_heads * hd, mesh, ax), cfg)
     k = col_parallel(src, p["wk"], cfg.n_kv_heads * hd, mesh, ax)
     v = col_parallel(src, p["wv"], cfg.n_kv_heads * hd, mesh, ax)
     if tp > 1 and not q_shardable and q.shape[-1] != cfg.n_heads * hd:
@@ -503,6 +548,11 @@ def _attend(p, x, cfg: ArchConfig, ctx: ParallelCtx, *, window, causal=True,
 def _apply_ffn(p, x, cfg: ArchConfig, ctx: ParallelCtx, seg: Segment):
     """The layer's FFN: (out, aux loss); only MoE has an aux loss.  On a
     rank of a mesh ``x`` and the output are whole, replicated over model."""
+    if seg.ffn == "moe" and cfg.moe.dropless:
+        if ctx.tp > 1:
+            raise ValueError("the dropless MoE holds one chip's share of the "
+                             "experts and runs without a model axis")
+        return moe_lib.moe_ffn_dropless(p["moe"], x, cfg.moe)
     if seg.ffn == "moe":
         return moe_lib.moe_ffn(p["moe"], x, cfg.moe, mesh=ctx.mesh,
                                model_axis=ctx.model_axis,
@@ -515,13 +565,16 @@ def _apply_ffn(p, x, cfg: ArchConfig, ctx: ParallelCtx, seg: Segment):
 def add_mixer(p, x, a, y, cfg: ArchConfig):
     """The residual add of a layer's mixer: the attention output ``a``, the
     SSM output ``y``, or (hybrid, both given) the mean of the two after
-    each branch's norm."""
+    each branch's norm; times ``residual_multiplier`` where the arch has
+    one."""
     if y is None:
-        return x + a
-    if a is None:
-        return x + y
-    return x + 0.5 * (rms_norm(p["attn_norm"], a, cfg.norm_eps)
-                      + rms_norm(p["ssm_norm"], y, cfg.norm_eps))
+        m = a
+    elif a is None:
+        m = y
+    else:
+        m = 0.5 * (rms_norm(p["attn_norm"], a, cfg.norm_eps)
+                   + rms_norm(p["ssm_norm"], y, cfg.norm_eps))
+    return x + scale_residual(m, cfg)
 
 
 def xgate(p, x):
@@ -578,7 +631,7 @@ def apply_layer(p, x, seg: Segment, cfg: ArchConfig, ctx: ParallelCtx,
         with _taped(ctx, tape):
             out, aux = _apply_ffn(p, h2, cfg, ctx, seg)
             out = rows.take(out)
-        x = x + out
+        x = x + scale_residual(out, cfg)
     return x, aux
 
 
@@ -661,13 +714,14 @@ def embed(params, tokens, cfg: ArchConfig, ctx: ParallelCtx):
     (one rank adds the row, the rest add zeros)."""
     e = params["embed"]
     if e.shape[0] == cfg.padded_vocab:
-        return e[tokens].to(ctx.compute_dtype)
+        return scale_embed(e[tokens].to(ctx.compute_dtype), cfg)
     n = e.shape[0]
     idx = tokens.long() - ctx.mesh.index(ctx.model_axis) * n
     mine = (idx >= 0) & (idx < n)
     x = torch.where(mine[..., None], e[idx.clamp(0, n - 1)],
                     torch.zeros((), dtype=e.dtype, device=e.device))
-    return ctx.mesh.all_reduce(x.to(ctx.compute_dtype), ctx.model_axis, "sum")
+    return scale_embed(ctx.mesh.all_reduce(x.to(ctx.compute_dtype),
+                                           ctx.model_axis, "sum"), cfg)
 
 
 def logits(params, h, cfg: ArchConfig, ctx: ParallelCtx):
@@ -679,9 +733,9 @@ def logits(params, h, cfg: ArchConfig, ctx: ParallelCtx):
     logits summed."""
     w = unembed_matrix(params, cfg).to(h.dtype)
     if w.shape[1] == cfg.padded_vocab:
-        return mask_vocab_pad(row_parallel(h, w, cfg.d_model, ctx.mesh,
-                                           ctx.model_axis).float(), cfg)
-    out = matmul(ctx.mesh.enter(h, ctx.model_axis), w).float()
+        return mask_vocab_pad(scale_logits(row_parallel(
+            h, w, cfg.d_model, ctx.mesh, ctx.model_axis).float(), cfg), cfg)
+    out = scale_logits(matmul(ctx.mesh.enter(h, ctx.model_axis), w).float(), cfg)
     lo = ctx.mesh.index(ctx.model_axis) * w.shape[1]
     ids = lo + torch.arange(w.shape[1], device=h.device)
     out = torch.where(ids < cfg.vocab, out, -1e30)
@@ -794,7 +848,7 @@ def nll_sum(params, h, labels, cfg: ArchConfig, ctx: ParallelCtx,
     ids = lo + torch.arange(v_loc, device=h.device)
 
     def chunk_nll(hs, ls):
-        logits = matmul(hs, w).float()
+        logits = scale_logits(matmul(hs, w).float(), cfg)
         if cfg.padded_vocab != cfg.vocab:
             logits = torch.where(ids < cfg.vocab, logits, -1e30)
         m = reduce(logits.detach().amax(-1), "max")

@@ -42,10 +42,14 @@ CPU).  The simulated costs (``costs``, ``sim_time_us``, ``bg_time_us``,
 ``daemon_us``, ``fence_wait_us`` and the latency reservoirs of
 ``EngineStats``) are the reference's simulation, not measurements of the
 device this runs on.  The rest of ``EngineStats`` counts what happened:
-``wall_time_s`` on the host's clock, and ``d2h_bytes``/``h2d_bytes`` the
+``wall_time_s`` on the host's clock, ``d2h_bytes``/``h2d_bytes`` the
 bytes moved between the device and the host tier (pool pages, per-slot
-blobs).  With ``core.spans`` on, each layer of the engine's work records
-a span (``engine.*``, and ``host_tier.*`` from ``device_ops``).
+blobs), and ``moe_entries``/``moe_groups`` the dropless MoE's work, counted
+on the device and read back in the copy of a prefill's or a decode step's
+tokens (no other wait).  With ``core.spans`` on, each layer of the engine's
+work records a span (``engine.*``, ``moe.layer`` from the dropless MoE, and
+``host_tier.*`` from ``device_ops``), and each dropless MoE call's counts a
+mark (``moe.entries``, ``moe.groups``) when they are read back.
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ from repro_torch.core.pool import ValetMempool
 from repro_torch.core.reservoir import LatencyStatsMixin
 from repro_torch.core.tiers import DeviceTier, HostTier
 from repro_torch.models import decode as D
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import ParallelCtx
 
 
@@ -119,6 +124,10 @@ class EngineStats(LatencyStatsMixin):
     # the port's own: the reference has no such fields)
     d2h_bytes: int = 0               # flushes, forced evictions, spills, blobs
     h2d_bytes: int = 0               # stream-ins and blob write-backs
+    # the dropless MoE's work (the port's own; zero on other archs), counted
+    # on the device and read back with the tokens
+    moe_entries: int = 0             # entries the held experts computed
+    moe_groups: int = 0              # held (layer call, expert) groups with rows
 
 
 class ValetServeEngine:
@@ -215,6 +224,8 @@ class ValetServeEngine:
         self._slots_free = list(range(max_batch))
         self._requests: Dict[int, Request] = {}
         self._seq_blobs: Dict[int, Any] = {}
+        self._moe_counts: List[torch.Tensor] = []   # per dropless MoE call,
+                                                    # not yet read back
 
     @classmethod
     def from_config(cls, params, cfg: ArchConfig, ctx: ParallelCtx,
@@ -262,8 +273,9 @@ class ValetServeEngine:
             if "pool" in c:
                 c["pool"] = self.caches["layers"][li]["pool"]
         toks = self._tensor(np.asarray(prompt_tokens, np.int64)[None])
-        logits, one = D.prefill(self.params, toks, self.cfg, self.ctx, one,
-                                self._tensor(bt_row[None]))
+        with moe_lib.tally(self._moe_counts):
+            logits, one = D.prefill(self.params, toks, self.cfg, self.ctx, one,
+                                    self._tensor(bt_row[None]))
         for bc, oc in zip(self.caches["layers"], one["layers"]):
             if "ring" in bc:
                 bc["ring"].k[slot].copy_(oc["ring"].k[0])
@@ -587,7 +599,7 @@ class ValetServeEngine:
             with spans.span("engine.prefill", req.rid, len(req.prompt)):
                 logits = self._prefill_one(req.prompt, req.slot, bt)
                 # the prompt's last position yields the first generated token
-                req.tokens_out.append(int(logits[0].argmax()))
+                req.tokens_out.append(int(self._readback(logits[0].argmax())))
         self.stats.tokens += 1
         self.stats.sim_time_us += self.costs.local_write * need
         if req.first_token_us < 0:
@@ -794,12 +806,13 @@ class ValetServeEngine:
         with spans.span("engine.decode.upload", n=n):
             toks, bt, app_slot, app_off, act = (
                 self._tensor(a) for a in (toks, bt, app_slot, app_off, act))
-        with spans.span("engine.decode.issue", n=n):
+        with spans.span("engine.decode.issue", n=n), \
+                moe_lib.tally(self._moe_counts):
             logits, self.caches = D.decode_step(
                 self.params, self.caches, toks, self.cfg, self.ctx, bt,
                 app_slot, app_off, active=act)
         with spans.span("engine.decode.readback", n=n):
-            nxt = logits.argmax(dim=-1).cpu().numpy()
+            nxt = self._readback(logits.argmax(dim=-1))
             self.stats.steps += 1
             self.stats.sim_time_us += self.step_cost_us \
                 + self.costs.local_write * n
@@ -811,6 +824,24 @@ class ValetServeEngine:
                     self._slots_free.append(r.slot)
                     self._free_pages(r)
                     r.slot = -1
+
+    def _readback(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` (int64, on the device) on the host.  The entry counts of the
+        dropless MoE calls issued since the last readback come in the same
+        copy: they are added to ``EngineStats`` and, per call, to the span
+        log (``moe.entries``, then ``moe.groups``)."""
+        if not self._moe_counts:
+            return t.cpu().numpy()
+        ends = np.cumsum([t.numel()] + [c.numel() for c in self._moe_counts])
+        host = torch.cat([t.reshape(-1), *self._moe_counts]).cpu().numpy()
+        self._moe_counts.clear()
+        for counts in np.split(host, ends)[1:-1]:
+            entries, groups = int(counts.sum()), int(np.count_nonzero(counts))
+            self.stats.moe_entries += entries
+            self.stats.moe_groups += groups
+            spans.mark("moe.entries", n=entries)
+            spans.mark("moe.groups", n=groups)
+        return host[:t.numel()].reshape(t.shape)
 
     def _preempt(self, req: Request) -> int:
         """Pause a sequence: demote (zero-restore), spill (legacy valet /

@@ -1,4 +1,5 @@
-"""The port's configs equal the reference's field by field, the weight
+"""The port's configs equal the reference's field by field (the port's own
+fields absent), the weight
 bridge carries every arch's parameter tree over bit for bit, and the port's
 ``init_params`` builds the reference's tree for every arch."""
 import dataclasses
@@ -37,12 +38,30 @@ def test_registries_have_the_same_archs_and_shapes():
         {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
 
 
+# the port's own fields, absent (at these values) in every registered arch:
+# the layer pattern and Granite's multipliers, and the MoE's dropless share
+PORT_ONLY = {"layer_pattern": (), "embedding_multiplier": None,
+             "attention_multiplier": None, "residual_multiplier": None,
+             "logits_scaling": None}
+PORT_ONLY_MOE = {"dropless": False, "held_first": 0, "held_count": 0}
+
+
+def ref_fields(port_cfg):
+    """The reference's fields of a port config, once its own are checked
+    absent."""
+    d = dataclasses.asdict(port_cfg)
+    assert {k: d.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    if d["moe"] is not None:
+        assert {k: d["moe"].pop(k) for k in PORT_ONLY_MOE} == PORT_ONLY_MOE
+    return d
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_arch_and_reduced_configs_equal(name):
     ref, port = ref_configs.ARCHS[name], configs.ARCHS[name]
-    assert dataclasses.asdict(ref) == dataclasses.asdict(port)
+    assert dataclasses.asdict(ref) == ref_fields(port)
     assert dataclasses.asdict(ref_configs.reduced(ref)) == \
-        dataclasses.asdict(configs.reduced(port))
+        ref_fields(configs.reduced(port))
     for attr in ("padded_vocab", "resolved_head_dim", "is_subquadratic"):
         assert getattr(ref, attr) == getattr(port, attr)
     assert ref.param_count() == port.param_count()

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import device_ops as dev  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import host_pages as hp  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
@@ -563,3 +564,101 @@ def test_cuda_host_arena_round_trip_is_exact(cuda, name):
     for d, s in zip(dst, slots):
         assert all(torch.equal(p[d], q[s]) for p, q in zip(pools, before))
     assert arena.in_use == 0
+
+
+# the dropless MoE's grouped GEMM: ragged groups (empty, one row, past a
+# tile, many tiles), K x N of the cell's gate-up (4096 x 768) and down
+# (768 x 4096) products, and small ones
+MOE_SIZES = [0, 1, 17, 33, 0, 70, 5, 0]
+
+
+def moe_inputs(cuda, k, n, sizes, gated, seed=0, t=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    entries = sum(sizes)
+    t = t or entries
+    a = torch.randn((t, k), device=cuda, generator=g).to(torch.bfloat16)
+    w = [(torch.randn((len(sizes), k, n), device=cuda, generator=g) / k ** 0.5)
+         .to(torch.bfloat16) for _ in range(2 if gated else 1)]
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32,
+                           device=cuda)
+    rows = torch.randint(0, t, (entries,), device=cuda, generator=g, dtype=torch.int32)
+    return a, offsets, w, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(128, 64), (4096, 768), (768, 4096)])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("block_m", [32, 64])
+def test_cuda_moe_gemm_matches_plain(cuda, k, n, gated, block_m):
+    a, offsets, w, rows = moe_inputs(cuda, k, n, MOE_SIZES, gated, t=50)
+    n_rows = sum(MOE_SIZES)
+    before = mg.moe_gemm.launches
+    got = mg.moe_gemm(a, offsets, *w, rows=rows, n_rows=n_rows + 3, block_m=block_m)
+    assert mg.moe_gemm.launches - before == 1
+    want = mg.moe_gemm_plain(a, offsets, *w, rows=rows, n_rows=n_rows + 3)
+    torch.cuda.synchronize()
+    # bf16 outputs of f32 sums taken in another order: a rounding or two
+    # of bf16 (2^-8 relative) on values of size ~1
+    assert torch.allclose(got[:n_rows].float(), want[:n_rows].float(),
+                          atol=2e-2, rtol=2e-2)
+    assert torch.isfinite(got[:n_rows].float()).all()
+    # again, bit for bit
+    assert torch.equal(got[:n_rows], mg.moe_gemm(a, offsets, *w, rows=rows,
+                                                 n_rows=n_rows + 3,
+                                                 block_m=block_m)[:n_rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_m", [32, 64])
+def test_cuda_moe_gemm_row_keeps_its_bits_in_any_group(cuda, block_m):
+    """One row of A gives the same bits alone in its group, at any place in
+    a long group, and in the down mode without a row index."""
+    a, _, w, _ = moe_inputs(cuda, 256, 128, [1], True, seed=3, t=80)
+    one = lambda rows, sizes: mg.moe_gemm(
+        a, torch.tensor([0] + list(np.cumsum(sizes)), dtype=torch.int32, device=cuda),
+        w[0].expand(len(sizes), -1, -1).contiguous(),
+        w[1].expand(len(sizes), -1, -1).contiguous(),
+        rows=torch.tensor(rows, dtype=torch.int32, device=cuda), n_rows=len(rows),
+        block_m=block_m)
+    alone = one([7], [1])[0]
+    others = [r for r in range(80) if r != 7]
+    for place in (0, 5, 31, 32, 63, 70):
+        rows = others[:place] + [7] + others[place:74]
+        got = one(rows, [3, 72])
+        assert torch.equal(got[place], alone)
+
+
+@pytest.mark.cuda
+def test_cuda_dropless_moe_matches_cpu_and_counts_its_entries(cuda):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as M
+    moe = MoEConfig(n_experts=16, top_k=4, n_shared=2, d_expert=128, renorm_topk=True,
+                    dropless=True, held_first=4, held_count=8)
+    d, t = 256, 96
+    p = M.init_moe(d, moe, 1, generator=torch.Generator().manual_seed(0), device="cpu")
+    # weights and rows that bf16 holds exactly, so that both devices route
+    # the same values
+    bf = lambda w: w.to(torch.bfloat16).float()
+    p = {k: ({n: bf(w[0]) for n, w in v.items()} if isinstance(v, dict) else v[0])
+         for k, v in p.items()}
+    p["router"] = p["router"] * 50                 # decisive routing
+    x = bf(torch.randn(t, d, generator=torch.Generator().manual_seed(1)))
+    active = torch.rand(t, generator=torch.Generator().manual_seed(2)) > 0.25
+    want = M.moe_ffn_dropless(p, x, moe, active=active, with_aux=False)
+    on = lambda v: v.to(cuda) if v.dtype == torch.bool else v.to(cuda, torch.bfloat16)
+    pc = {k: ({n: on(w) for n, w in v.items()} if isinstance(v, dict) else on(v))
+          for k, v in p.items()}
+    pc["router"] = p["router"].to(cuda)
+    counts, before = [], mg.moe_gemm.launches
+    with M.tally(counts):
+        got = M.moe_ffn_dropless(pc, on(x), moe, active=on(active), with_aux=False)
+    assert mg.moe_gemm.launches - before == 2
+    torch.cuda.synchronize()
+    # bf16 weights and activations against f32: a few bf16 roundings of
+    # outputs of size ~0.1
+    assert torch.allclose(got.float().cpu(), want, atol=3e-2, rtol=5e-2)
+    # the entries computed are those routed to the held experts by active rows
+    eids = M.router_topk(pc, on(x), moe)[0]
+    mine = (eids >= 4) & (eids < 12) & on(active)[:, None]
+    assert int(counts[0].sum()) == int(mine.sum())
+    assert torch.equal(counts[0], torch.bincount(eids[mine] - 4, minlength=8))

@@ -4,8 +4,9 @@ arguments: reduced granite-3-8b, 6 requests under a pool of 10 slots, the
 reference's weights (its ``init_params(PRNGKey(0))``, carried over through
 ``bridge``) and prompts (``default_rng(0)`` in both).  Every printed line
 is equal but for ``wall=`` and the port's own ``d2h=``/``h2d=``, which
-must be the engine's byte counters, and its host arena's ``arena=``,
-``peak=`` and ``host_pages=`` (no launch on the CPU).  And ``--dryrun``: one rank's decode cell on
+must be the engine's byte counters, its host arena's ``arena=``,
+``peak=`` and ``host_pages=`` (no launch on the CPU), and its dropless
+MoE counts ``moe=`` (none: granite has no MoE).  And ``--dryrun``: one rank's decode cell on
 the meta device, an ``ok`` record, exit 0."""
 import json
 import re
@@ -27,14 +28,16 @@ def _lines(text):
 
 
 def _host_bytes(lines):
-    """The port's ``d2h=``/``h2d=`` (MB) and its arena's pages in use,
-    capacity, peak and kernel launches, taken off the third line."""
+    """The port's ``d2h=``/``h2d=`` (MB), its arena's pages in use,
+    capacity, peak and kernel launches, and its MoE entries and groups,
+    taken off the third line."""
     m = re.search(r" d2h=(\S+)MB h2d=(\S+)MB arena=(\d+)/(\d+) peak=(\d+) "
-                  r"host_pages=(\d+)$", lines[2])
+                  r"host_pages=(\d+) moe=(\d+)/(\d+)$", lines[2])
     assert m, lines[2]
     lines[2] = lines[2][:m.start()]
     return (float(m.group(1)), float(m.group(2)),
-            tuple(int(m.group(i)) for i in range(3, 7)))
+            tuple(int(m.group(i)) for i in range(3, 7)),
+            (int(m.group(7)), int(m.group(8))))
 
 
 def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
@@ -64,7 +67,7 @@ def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
     monkeypatch.setattr(serve_pkg, "ValetServeEngine", keep)
     assert serve.main(ARGS + ["--device", "cpu"]) == 0
     got = _lines(capsys.readouterr().out)
-    d2h, h2d, arena = _host_bytes(got)
+    d2h, h2d, arena, moe = _host_bytes(got)
     assert len(want) == 7 and want[0].startswith("policy=valet requests=6")
     assert got == want
     st = engines[0].stats
@@ -73,6 +76,7 @@ def test_local_run_prints_what_the_reference_prints(monkeypatch, capsys):
     a = engines[0].arena
     assert arena == (a.in_use, a.capacity, a.peak, 0) and a.peak > 0
     assert "pauses=0 " not in want[1]          # the pool was under pressure
+    assert moe == (st.moe_entries, st.moe_groups) == (0, 0)
 
 
 def test_seed_is_gone():
