@@ -108,7 +108,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SSD_BF16_ABS_ERR = 1e-3
 # calls of each kernel's plain version on CUDA tensors (main() counts them)
 PLAIN_CUDA_CALLS = {"paged": 0, "paged_partials": 0, "flash": 0, "ssd": 0,
-                    "host_pages": 0, "moe_gemm": 0}
+                    "host_pages": 0, "moe_gemm": 0, "kv_append": 0}
 
 
 def log(*a):
@@ -660,12 +660,59 @@ def moe_case(name, t, seed, d=4096, f=768, held=18):
                 groups=groups, **times)
 
 
+def kv_append_case(name, b=64, n_slots=2400, page=16, kv=8, hd=128, seed=24):
+    """The decode step's paged append at granite-3-8b's batch and f32 pool
+    (bf16 rows, a quarter of the rows inactive and aimed at slot 0, past
+    the pool or below it): the kernel against its plain version and
+    against the eager append it replaces (``live_rows``' ``nonzero()`` and
+    two ``index_put_``, the library column), bit for bit, and timed beside
+    its bound (a read of each live row and a write into the pool)."""
+    from repro_torch.core import device_ops as dev_ops
+    from repro_torch.kernels import kv_append as kva
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = [torch.randn((n_slots, page, kv, hd), device="cuda", generator=g)
+            for _ in range(2)]
+    k, v = (torch.randn((b, kv, hd), device="cuda", generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    row = torch.arange(b, device="cuda")
+    mask = row % 4 != 1
+    slot = torch.where(mask, torch.randperm(n_slots, device="cuda", generator=g)[:b],
+                       torch.tensor([0, n_slots, -1, 7], device="cuda")[row // 4 % 4])
+    off = row % page
+    outs = []
+    for fn in (lambda p: kva.kv_append(p[0], p[1], k, v, slot, off, mask),
+               lambda p: kva.kv_append_plain(p[0], p[1], k, v, slot, off, mask),
+               lambda p: dev_ops.append_token_masked(
+                   dev_ops.KVPool(*p), k, v, slot, off, mask,
+                   rows=dev_ops.live_rows(mask, slot, n_slots))):
+        p = [t.clone() for t in pool]
+        fn(p)
+        outs.append(p)
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        if not all(torch.equal(a, c) for a, c in zip(outs[0], other)):
+            fail(f"{name}: the kernel's pool differs from the plain or eager append")
+    times = timings(lambda: kva.kv_append(pool[0], pool[1], k, v, slot, off, mask),
+                    lambda: kva.kv_append_plain(pool[0], pool[1], k, v, slot, off, mask),
+                    lambda: dev_ops.append_token_masked(
+                        dev_ops.KVPool(*pool), k, v, slot, off, mask,
+                        rows=dev_ops.live_rows(mask, slot, n_slots)),
+                    plain_reps=5)
+    live = int(mask.sum())
+    bms, by = bound_ms(2 * live * kv * hd * (2 + 4), 0, torch.float32)
+    log(f"  {name}: {live} of {b} rows append: {times_text(times)}  bound {bms:.4f} ms "
+        f"({by}); library: the eager append with live_rows")
+    return dict(max_abs_err=0.0, bound_ms=bms, bound_by=by, **times)
+
+
 def phase_kernels():
     log("phase 2: kernels against their plain versions on the card (ms: CUDA "
         "events around one call, the wrapper's host cost included whenever "
         "the card waits for it; device: the summed time of the kernels the "
         "call launches, torch.profiler)")
     recs = {}
+    recs[("kv_append",)] = kv_append_case(
+        "kv_append granite decode B64 Hkv8 D128 bf16 rows into an f32 pool of 2400 pages")
     # the dropless MoE's grouped GEMM at granite-4.0-h-small's decode (128
     # rows) and prefill (2048 tokens) shapes
     recs[("moe", "decode")] = moe_case(
@@ -972,11 +1019,12 @@ def off_path():
     path's counts."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import host_pages as hp
+    from repro_torch.kernels import kv_append as kva
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
     wrappers = (fa.flash_attention, pa.paged_attention, pa.paged_attention_partials,
-                ssd.ssd_scan, hp.host_pages, mg.moe_gemm)
+                ssd.ssd_scan, hp.host_pages, mg.moe_gemm, kva.kv_append)
     before = [w.launches for w in wrappers]
     plain_before = dict(PLAIN_CUDA_CALLS)
     try:
@@ -3593,6 +3641,7 @@ def main():
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import host_pages as hp
+    from repro_torch.kernels import kv_append as kva
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ssd
@@ -3631,7 +3680,8 @@ def main():
     wrappers = {"paged": (pa, "paged_attention"),
                 "paged_partials": (pa, "paged_attention_partials"),
                 "flash": (fa, "flash_attention"), "ssd": (ssd, "ssd_scan"),
-                "host_pages": (hp, "host_pages"), "moe_gemm": (mg, "moe_gemm")}
+                "host_pages": (hp, "host_pages"), "moe_gemm": (mg, "moe_gemm"),
+                "kv_append": (kva, "kv_append")}
     plain_cuda_calls = PLAIN_CUDA_CALLS
 
     def counting(fn, key):
@@ -3644,7 +3694,9 @@ def main():
         setattr(mod, fn + "_plain", counting(getattr(mod, fn + "_plain"), key))
     # granite's pressured runs (zero-restore, legacy, os-swap) move pages
     # to the host arena and back through the host-tier kernel
-    main_paths = [(4, "granite-3-8b", phase_granite, ("paged", "flash", "host_pages")),
+    # an engine's decode step appends through kv_append on every paged arch
+    main_paths = [(4, "granite-3-8b", phase_granite,
+                   ("paged", "flash", "host_pages", "kv_append")),
                   (5, "gemma3-4b", phase_gemma, ("paged", "flash")),
                   (6, "hymba-1.5b", phase_hymba, ("paged", "flash", "ssd")),
                   (7, "mamba2-2.7b", phase_mamba2, ("ssd",)),
@@ -3744,6 +3796,9 @@ def main():
                                 source="src/repro_torch/csrc/moe_gemm.cu",
                                 replaces=None, launches=launches["moe_gemm"],
                                 **recs[("moe", shape)]))
+        kernels.append(dict(name="kv_append", route="cuda",
+                            source="src/repro_torch/csrc/kv_append.cu", replaces=None,
+                            launches=launches["kv_append"], **recs[("kv_append",)]))
     if path_recs.get(12) is not None:
         kernels.append(dict(name="paged_attention_partials", route="cuda",
                             source="src/repro_torch/csrc/paged_attention.cu",

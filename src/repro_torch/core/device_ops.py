@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import spans
 from repro_torch.kernels import host_pages as hp
+from repro_torch.kernels.kv_append import kv_append
 
 
 class KVPool(NamedTuple):
@@ -61,7 +62,11 @@ def live_rows(own_mask, slot, n_slots) -> torch.Tensor:
 
     The reference drops the rest through XLA's ``mode="drop"``; an
     out-of-bounds ``index_put_`` is a device-side assert in PyTorch, so the
-    valid rows are selected explicitly (one host sync on a CUDA mask)."""
+    valid rows are selected explicitly.  The selection is ``nonzero()``,
+    which on a CUDA mask waits for the card: the CPU's decode step and the
+    sharded serve step (``launch/serve_step.py``, once a step) take it; the
+    decode step on the card appends through the ``kv_append`` kernel
+    instead (``append_token_masked`` without ``rows``)."""
     slot = torch.as_tensor(slot)
     ok = torch.as_tensor(own_mask, device=slot.device).bool() \
         & (slot >= 0) & (slot < n_slots)
@@ -72,10 +77,16 @@ def append_token_masked(pool: KVPool, k, v, slot, offset, own_mask,
                         rows=None) -> KVPool:
     """Masked append: only rows with ``own_mask`` (and an in-range slot)
     write; the others are dropped.  ``rows`` may pass a precomputed
-    ``live_rows`` selection (the decode step shares one across layers)."""
+    ``live_rows`` selection (the CPU's decode step shares one across
+    layers).  On the card, without ``rows``, the ``kv_append`` kernel
+    writes the live rows and skips the others, with no host sync."""
+    dev = pool.k.device
+    if rows is None and pool.k.is_cuda:
+        kv_append(pool.k, pool.v, k, v, _index(slot, dev), _index(offset, dev),
+                  torch.as_tensor(own_mask, device=dev).bool())
+        return pool
     if rows is None:
         rows = live_rows(own_mask, slot, pool.k.shape[0])
-    dev = pool.k.device
     rows = rows.to(dev)
     return append_token(pool, k[rows], v[rows], _index(slot, dev)[rows],
                         _index(offset, dev)[rows])

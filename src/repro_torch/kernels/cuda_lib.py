@@ -113,8 +113,21 @@ def load() -> ctypes.CDLL:
     lib.valet_host_pages_move.restype = i
     lib.valet_moe_gemm.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, p]
     lib.valet_moe_gemm.restype = i
+    lib.valet_kv_append.argtypes = [p] * 7 + [i, q, i, i, i, i, p]
+    lib.valet_kv_append.restype = i
+    lib.valet_graph_nodes.argtypes = [p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.valet_graph_nodes.restype = i
     _lib = lib
     return lib
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The node count of a graph captured with ``keep_graph=True`` and not
+    yet reset."""
+    n = ctypes.c_ulonglong()
+    check(load().valet_graph_nodes(graph.raw_cuda_graph(), ctypes.byref(n)),
+          "cudaGraphGetNodes")
+    return n.value
 
 
 def dtype_code(dtype) -> int:

@@ -15,10 +15,13 @@ data plane: given block tables + append targets it computes one decode
 step.  All paged layers share one block table — a logical page allocation
 spans every paged layer (slot i of each layer's pool).
 
-Caches are updated **in place** (the reference returns new arrays): the
-pools and rings of ``caches`` are the same tensors after a step; ``lengths``,
-the SSM states and the prefill's cross K/V are new tensors in the returned
-dict.
+Caches are updated **in place** (the reference returns new arrays): a
+decode step writes the pools, the rings, each SSM layer's state (right
+after the layer, so a step never holds two states of more than one layer)
+and ``lengths`` into the tensors ``caches`` holds, and returns ``caches``
+itself.  So a step has fixed inputs and outputs, and the serving engine
+replays it as one CUDA graph on the card (``serve/engine.py``).  The
+prefill's caches are new tensors (its SSM states and cross K/V).
 
 Kernels on this path: decode attention over the pool is the paged kernel
 (``kernels/paged_attention.py``), reading KV through the block table with no
@@ -162,7 +165,7 @@ def _paged_attn_step(p, x, cache, cfg, step_args):
     out = paged_attention_op(q.contiguous(), pool.k, pool.v,
                              step_args["block_table"],
                              step_args["lengths_incl"])
-    return _attn_out(p, out.to(x.dtype), b), {**cache, "pool": pool}
+    return _attn_out(p, out.to(x.dtype), b)
 
 
 def _ring_attn_step(p, x, cache, cfg, step_args, window):
@@ -183,7 +186,7 @@ def _ring_attn_step(p, x, cache, cfg, step_args, window):
     valid = (abs_pos >= 0) & (abs_pos <= cur) & (abs_pos > cur - window)
     m, l, acc = decode_partial(q, ring.k, ring.v, valid)
     out = combine_partials((m[None], l[None], acc[None]), x.dtype)
-    return _attn_out(p, out, b), {**cache, "ring": ring}
+    return _attn_out(p, out, b)
 
 
 def _cross_attn_step(p, x, cache, cfg):
@@ -216,40 +219,47 @@ def _ffn_step(p, x, cfg: ArchConfig, info: LayerInfo, active=None):
 
 def decode_layer(p, x, info: LayerInfo, cache, cfg: ArchConfig,
                  ctx: ParallelCtx, step_args):
+    """One layer's step; its caches are written in place."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    new_cache = dict(cache)
     if info.kind == "xattn":
-        x = x + xgate(p, x) * _cross_attn_step(p["xattn"], h, new_cache, cfg)
+        x = x + xgate(p, x) * _cross_attn_step(p["xattn"], h, cache, cfg)
     else:
         a = y = None
         if info.kind in ("attn", "dec", "hybrid"):
             if info.uses_paged:
-                a, new_cache = _paged_attn_step(p["attn"], h, new_cache, cfg,
-                                                step_args)
+                a = _paged_attn_step(p["attn"], h, cache, cfg, step_args)
             else:
-                a, new_cache = _ring_attn_step(p["attn"], h, new_cache, cfg,
-                                               step_args, info.window)
+                a = _ring_attn_step(p["attn"], h, cache, cfg, step_args,
+                                    info.window)
         if info.uses_ssm:
-            y, new_cache["ssm"] = ssm_lib.ssm_decode_step(
-                p["ssm"], h, cache["ssm"], cfg.d_model, cfg.ssm)
+            state = cache["ssm"]
+            y, new = ssm_lib.ssm_decode_step(p["ssm"], h, state, cfg.d_model,
+                                             cfg.ssm)
+            # into the state's own tensors at once: the layer's new state is
+            # freed before the next layer makes its own
+            state["h"].copy_(new["h"])
+            state["conv"].copy_(new["conv"])
         x = add_mixer(p, x, a, y, cfg)
         if info.kind == "dec":
             hx = rms_norm(p["lnx"], x, cfg.norm_eps)
-            x = x + _cross_attn_step(p["xattn"], hx, new_cache, cfg)
+            x = x + _cross_attn_step(p["xattn"], hx, cache, cfg)
     if info.ffn != "none":
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         x = x + scale_residual(_ffn_step(p, h2, cfg, info, step_args["active"]),
                                cfg)
-    return x, new_cache
+    return x
 
 
 def decode_step(params, caches, tokens, cfg: ArchConfig, ctx: ParallelCtx,
                 block_table, append_slot, append_off, active=None):
-    """One decode step.  tokens: (B,).  Returns (logits, caches).
+    """One decode step.  tokens: (B,).  Returns (logits, caches), the
+    ``caches`` passed in, updated in place (the module docstring).
 
     ``active``: (B,) bool — inactive batch slots neither append KV nor
-    advance their length (continuous batching with holes).  Pools and rings
-    are updated in place.
+    advance their length (continuous batching with holes).  No step
+    operation waits for the card on CUDA tensors, so the step can be
+    captured as a CUDA graph; on the CPU the paged layers share one
+    ``live_rows`` selection of the appending rows.
     """
     device = caches["lengths"].device
     tokens = torch.as_tensor(tokens, device=device)
@@ -273,21 +283,20 @@ def decode_step(params, caches, tokens, cfg: ArchConfig, ctx: ParallelCtx,
         "append_slot": append_slot,
         "append_off": torch.as_tensor(append_off, device=device).long(),
         "active": active,
-        # one selection of the appending rows, shared by every paged layer
+        # off the card one selection of the appending rows, shared by every
+        # paged layer; on the card each append skips the others itself
         "rows": dev.live_rows(active, append_slot, paged[0].k.shape[0])
-        if paged else None,
+        if paged and device.type != "cuda" else None,
     }
-    new_layers = []
     for info, cache in zip(infos, caches["layers"]):
-        p = layer_params(params, info)
-        x, cache = decode_layer(p, x, info, cache, cfg, ctx, step_args)
-        new_layers.append(cache)
+        x = decode_layer(layer_params(params, info), x, info, cache, cfg, ctx,
+                         step_args)
 
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
     w = unembed_matrix(params, cfg).to(x.dtype)
     logits = mask_vocab_pad(scale_logits(matmul(x, w).float(), cfg), cfg)
-    new_len = lengths + active.to(torch.int32)
-    return logits, {"layers": new_layers, "lengths": new_len}
+    lengths.add_(active.to(torch.int32))
+    return logits, caches
 
 
 # --------------------------------------------------------------------------

@@ -305,8 +305,11 @@ def groups(eids, moe: MoEConfig, active=None):
     if active is not None:
         mine = mine & active[:, None]
     key, order = torch.sort(torch.where(mine, local, held).reshape(-1), stable=True)
-    counts = torch.bincount(key, minlength=held + 1)[:held]
-    offsets = F.pad(torch.cumsum(counts, 0), (1, 0)).to(torch.int32)
+    # each group's start in the sorted keys, found on the device (a
+    # ``bincount`` on CUDA reads its length back to the host)
+    starts = torch.searchsorted(key, torch.arange(held + 1, device=key.device))
+    counts = starts.diff()
+    offsets = starts.to(torch.int32)
     # a row's k choices are distinct experts: at most min(k, held) of them
     # are held, which bounds the entries computed; the host never learns
     # how many are

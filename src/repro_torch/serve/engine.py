@@ -36,11 +36,17 @@ The data plane stays exact: demoted pages come back bit-identically
 (repointed bytes never moved; streamed ones round-trip through pinned host
 memory), and deleted pages are recomputed by a real re-prefill.
 
-Calls are eager: every prefill and decode step runs as it is issued, on the
-device of the caches (``device="cuda"`` unless the caller asks for the
-CPU).  The simulated costs (``costs``, ``sim_time_us``, ``bg_time_us``,
-``daemon_us``, ``fence_wait_us`` and the latency reservoirs of
-``EngineStats``) are the reference's simulation, not measurements of the
+Every prefill runs eagerly, on the device of the caches (``device="cuda"``
+unless the caller asks for the CPU).  A decode step has fixed shapes (the
+batch is ``max_batch``, the block table ``max_batch x max_pages``, inactive
+rows masked) and reads its inputs from buffers the engine fills in place,
+so on the card it is one CUDA graph: captured at the engine's first decode
+step, after that step has run eagerly on a side stream, and replayed on
+the current stream at every later one, where the host tier's copies run
+too (``EngineStats.graph_replays`` counts the replays).  On the CPU the
+step runs eagerly.  The simulated costs (``costs``, ``sim_time_us``,
+``bg_time_us``, ``daemon_us``, ``fence_wait_us`` and the latency reservoirs
+of ``EngineStats``) are the reference's simulation, not measurements of the
 device this runs on.  The rest of ``EngineStats`` counts what happened:
 ``wall_time_s`` on the host's clock, ``d2h_bytes``/``h2d_bytes`` the
 bytes moved between the device and the host tier (pool pages, per-slot
@@ -75,6 +81,7 @@ from repro_torch.core.policies import Policy, CostModel, VALET, TPU_COSTS
 from repro_torch.core.pool import ValetMempool
 from repro_torch.core.reservoir import LatencyStatsMixin
 from repro_torch.core.tiers import DeviceTier, HostTier
+from repro_torch.kernels import cuda_lib
 from repro_torch.models import decode as D
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import ParallelCtx
@@ -128,6 +135,9 @@ class EngineStats(LatencyStatsMixin):
     # on the device and read back with the tokens
     moe_entries: int = 0             # entries the held experts computed
     moe_groups: int = 0              # held (layer call, expert) groups with rows
+    # decode steps replayed as the engine's CUDA graph (the port's own; zero
+    # off the card)
+    graph_replays: int = 0
 
 
 class ValetServeEngine:
@@ -226,6 +236,23 @@ class ValetServeEngine:
         self._seq_blobs: Dict[int, Any] = {}
         self._moe_counts: List[torch.Tensor] = []   # per dropless MoE call,
                                                     # not yet read back
+        # a decode step's inputs: tokens, block table, append slot and
+        # offset, active mask; built on the host (pinned on the card), then
+        # copied into the device buffers the step reads
+        on_card = self.torch_device.type == "cuda"
+        shapes = [((max_batch,), torch.int64),
+                  ((max_batch, self.max_pages), torch.int32),
+                  ((max_batch,), torch.int32), ((max_batch,), torch.int32),
+                  ((max_batch,), torch.bool)]
+        self._step_host = [torch.zeros(s, dtype=d, pin_memory=on_card)
+                           for s, d in shapes]
+        self._step_in = [torch.zeros(s, dtype=d, device=self.torch_device)
+                         for s, d in shapes]
+        # the decode step's CUDA graph, its next tokens and the dropless MoE
+        # calls' counts, once captured
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_next: Optional[torch.Tensor] = None
+        self._graph_counts: List[torch.Tensor] = []
 
     @classmethod
     def from_config(cls, params, cfg: ArchConfig, ctx: ParallelCtx,
@@ -771,11 +798,11 @@ class ValetServeEngine:
             active = [r for r in active if r.status == "active"]
             if not active:
                 return
-            bt = np.full((self.max_batch, self.max_pages), -1, np.int32)
-            app_slot = np.zeros((self.max_batch,), np.int32)
-            app_off = np.zeros((self.max_batch,), np.int32)
-            toks = np.zeros((self.max_batch,), np.int64)
-            act = np.zeros((self.max_batch,), bool)
+            toks, bt, app_slot, app_off, act = (t.numpy()
+                                                for t in self._step_host)
+            bt.fill(-1)
+            for a in (toks, app_slot, app_off, act):
+                a.fill(0)
             # one batched KV-page table resolution for the whole decode step
             flat_pages = np.concatenate(
                 [np.asarray(r.pages[: self.max_pages], np.int64)
@@ -804,15 +831,14 @@ class ValetServeEngine:
             self.tracker.on_write(step_pages, self.step_counter)
         n = len(active)
         with spans.span("engine.decode.upload", n=n):
-            toks, bt, app_slot, app_off, act = (
-                self._tensor(a) for a in (toks, bt, app_slot, app_off, act))
-        with spans.span("engine.decode.issue", n=n), \
-                moe_lib.tally(self._moe_counts):
-            logits, self.caches = D.decode_step(
-                self.params, self.caches, toks, self.cfg, self.ctx, bt,
-                app_slot, app_off, active=act)
+            # the last step's copies from the host buffers are done: its
+            # readback waited for them
+            for buf, host in zip(self._step_in, self._step_host):
+                buf.copy_(host, non_blocking=True)
+        with spans.span("engine.decode.issue", n=n):
+            nxt = self._decode(n)
         with spans.span("engine.decode.readback", n=n):
-            nxt = self._readback(logits.argmax(dim=-1))
+            nxt = self._readback(nxt)
             self.stats.steps += 1
             self.stats.sim_time_us += self.step_cost_us \
                 + self.costs.local_write * n
@@ -824,6 +850,50 @@ class ValetServeEngine:
                     self._slots_free.append(r.slot)
                     self._free_pages(r)
                     r.slot = -1
+
+    def _decode(self, n: int) -> torch.Tensor:
+        """The decode step over the filled input buffers; returns its next
+        tokens (the logits' argmax) on the device.  On the card the first
+        step captures the step as a CUDA graph and every later step replays
+        it; off the card the step runs eagerly."""
+        if self.torch_device.type != "cuda":
+            return self._decode_eager(self._moe_counts)
+        if self._graph is None:
+            return self._capture(n)
+        with spans.span("engine.decode.replay", n=n):
+            self._graph.replay()
+        self.stats.graph_replays += 1
+        self._moe_counts.extend(self._graph_counts)
+        return self._graph_next
+
+    def _decode_eager(self, counts: List[torch.Tensor]) -> torch.Tensor:
+        """The decode step as it is issued; the dropless MoE calls' counts
+        go to ``counts``."""
+        toks, bt, app_slot, app_off, act = self._step_in
+        with moe_lib.tally(counts):
+            logits, _ = D.decode_step(self.params, self.caches, toks, self.cfg,
+                                      self.ctx, bt, app_slot, app_off, active=act)
+        return logits.argmax(dim=-1)
+
+    def _capture(self, n: int) -> torch.Tensor:
+        """The first decode step on the card: it runs eagerly on a side
+        stream, which loads every kernel and library handle the step uses,
+        then the step is captured as a CUDA graph (not run) over the same
+        input buffers and caches.  Returns the eager step's next tokens."""
+        cur = torch.cuda.current_stream(self.torch_device)
+        side = torch.cuda.Stream(self.torch_device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            nxt = self._decode_eager(self._moe_counts)
+        cur.wait_stream(side)
+        with spans.span("engine.decode.capture", n=n) as sp:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                self._graph_next = self._decode_eager(self._graph_counts)
+            sp.set(cuda_lib.graph_nodes(graph))
+            graph.instantiate()
+        self._graph = graph
+        return nxt
 
     def _readback(self, t: torch.Tensor) -> np.ndarray:
         """``t`` (int64, on the device) on the host.  The entry counts of the
