@@ -1263,38 +1263,31 @@ def phase_hymba():
 
 def blob_cost(name, cfg, params, ctx, prompt, reps=5):
     """Wall time of one sequence's per-slot state (rings, SSD state and conv
-    rings) leaving for the host tier on a pause (``_read_seq_blob``: pinned
+    rings) leaving for the host tier on a pause (``DecodeBatch.save``: pinned
     copies, one synchronisation) and coming back on a resume
-    (``_write_seq_blob``), and that the round trip is exact."""
+    (``DecodeBatch.load``), and that the round trip is exact."""
     from repro_torch.serve import ValetServeEngine
+    from repro_torch.serve.batch import slot_state
     eng = ValetServeEngine(params, cfg, ctx, max_batch=1, max_seq=len(prompt) + 8,
                            page=16, pool_slots=128, device="cuda")
     rid = eng.submit(prompt, max_new=4)
     eng.step()                        # prefill + one decode step
     slot = eng._requests[rid].slot
-
-    def slot_state():
-        for c in eng.caches["layers"]:
-            if "ring" in c:
-                yield from (c["ring"].k[slot], c["ring"].v[slot])
-            if "ssm" in c:
-                yield from (c["ssm"]["h"][slot], c["ssm"]["conv"][slot])
-
-    before = [t.clone() for t in slot_state()]
+    before = [t.clone() for t in slot_state(eng.batch.caches, slot)]
     n_bytes = sum(t.numel() * t.element_size() for t in before)
     reads, writes = [], []
     for _ in range(reps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        blob = eng._read_seq_blob(slot)
+        blob = eng.batch.save(slot)
         t1 = time.perf_counter()
-        for t in slot_state():
+        for t in slot_state(eng.batch.caches, slot):
             t.zero_()
-        eng._write_seq_blob(slot, blob)
+        eng.batch.load(slot, blob)
         torch.cuda.synchronize()
         reads.append(t1 - t0)
         writes.append(time.perf_counter() - t1)
-    if not all(torch.equal(t, b) for t, b in zip(slot_state(), before)):
+    if not all(torch.equal(t, b) for t, b in zip(slot_state(eng.batch.caches, slot), before)):
         fail(f"{name}: the per-slot state did not round-trip through the host tier")
     rd, wr = 1e3 * np.median(reads[1:]), 1e3 * np.median(writes[1:])
     log(f"  {name} per-pause state blob: {n_bytes / 1e6:.1f} MB per sequence; "

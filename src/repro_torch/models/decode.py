@@ -10,17 +10,18 @@ Layers are unrolled (heterogeneous caches per layer kind):
   cross-attn layer (vlm ``xattn``, audio ``dec``) -> static per-request
                             cross K/V, written once by the prefill
 
-The control plane (serve/engine.py) owns slot allocation; this module is the
-data plane: given block tables + append targets it computes one decode
-step.  All paged layers share one block table — a logical page allocation
-spans every paged layer (slot i of each layer's pool).
+The serving engine (serve/engine.py) owns slot allocation, and its decode
+batch (serve/batch.py) builds the caches here and runs the steps; this module
+is the model's data plane: given block tables + append targets it computes
+one decode step.  All paged layers share one block table — a logical page
+allocation spans every paged layer (slot i of each layer's pool).
 
 Caches are updated **in place** (the reference returns new arrays): a
 decode step writes the pools, the rings, each SSM layer's state (right
 after the layer, so a step never holds two states of more than one layer)
 and ``lengths`` into the tensors ``caches`` holds, and returns ``caches``
-itself.  So a step has fixed inputs and outputs, and the serving engine
-replays it as one CUDA graph on the card (``serve/engine.py``).  The
+itself.  So a step has fixed inputs and outputs, and the decode batch
+replays it as one CUDA graph on the card (``serve/batch.py``).  The
 prefill's caches are new tensors (its SSM states and cross K/V).
 
 Kernels on this path: decode attention over the pool is the paged kernel

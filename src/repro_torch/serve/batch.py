@@ -1,0 +1,177 @@
+"""DecodeBatch: the serving engine's decode batch on the device (PyTorch).
+
+The engine (``serve/engine.py``) decides which request holds which batch
+slot and which pool slots hold its pages; this module holds the caches of
+``models/decode.py`` (the paged layers' pools, shared through the block
+table, and each slot's own state) and runs the model over them: a prefill
+into a slot, a slot's state to the host tier and back, the decode step.  A
+step has fixed shapes, so on the card it is one CUDA graph, captured at the
+first step and replayed at every later one; on the CPU it runs eagerly.
+The dropless MoE's counts (``moe.tally``) come to the host in the copy of
+the next ``readback``'s tokens, with no other wait.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import device_ops as dev
+from repro_torch.core import spans
+from repro_torch.kernels import cuda_lib
+from repro_torch.models import decode as D
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.transformer import ParallelCtx
+
+
+def slot_state(caches, slot: int) -> List[torch.Tensor]:
+    """Batch slot ``slot``'s own tensors in ``caches``, layer by layer: the
+    ring's K and V, then the SSM state's ``h`` and ``conv``."""
+    out = []
+    for c in caches["layers"]:
+        if "ring" in c:
+            out += [c["ring"].k[slot], c["ring"].v[slot]]
+        if "ssm" in c:
+            out += [c["ssm"]["h"][slot], c["ssm"]["conv"][slot]]
+    return out
+
+
+class SlotBlob(NamedTuple):
+    """A slot's state in the host tier, its length and its bytes."""
+    tensors: List[torch.Tensor]
+    length: int
+    nbytes: int
+
+
+class DecodeBatch:
+    def __init__(self, params, cfg: ArchConfig, ctx: ParallelCtx, stats, *,
+                 max_batch: int, max_pages: int, pool_slots: int, page: int,
+                 device: torch.device):
+        self.params, self.cfg, self.ctx = params, cfg, ctx
+        self.stats = stats               # the engine's EngineStats
+        self.page, self.device = page, device
+        self.infos = D.layer_infos(cfg)
+        self.paged_layers = [i for i, inf in enumerate(self.infos) if inf.uses_paged]
+        self.caches = D.init_caches(cfg, max_batch, pool_slots=pool_slots, page=page,
+                                    device=device)
+        self._counts: List[torch.Tensor] = []   # MoE calls' not read back
+        # the step's inputs (tokens, block table, append slot and offset,
+        # active mask): host buffers (pinned on the card) whose numpy views
+        # ``inputs`` the engine fills, and the device buffers the step reads
+        shapes = [((max_batch,), torch.int64),
+                  ((max_batch, max_pages), torch.int32),
+                  ((max_batch,), torch.int32), ((max_batch,), torch.int32),
+                  ((max_batch,), torch.bool)]
+        self._host = [torch.zeros(s, dtype=d, pin_memory=device.type == "cuda")
+                      for s, d in shapes]
+        self.inputs = tuple(t.numpy() for t in self._host)
+        self._in = [torch.zeros(s, dtype=d, device=device) for s, d in shapes]
+        # the step's CUDA graph, its next tokens and its MoE calls' counts
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_next: Optional[torch.Tensor] = None
+        self._graph_counts: List[torch.Tensor] = []
+
+    def kv_pools(self) -> List[torch.Tensor]:
+        """The paged layers' pools in the host arena's row order: layer by
+        layer, K then V."""
+        return [t for li in self.paged_layers
+                for t in self.caches["layers"][li]["pool"]]
+
+    def prefill(self, tokens: np.ndarray, slot: int, bt_row: np.ndarray) -> torch.Tensor:
+        """Prefill one request (B=1) into slot ``slot``: its pages go straight
+        into the shared pools through ``bt_row``, its own state is copied
+        into the slot.  Returns the logits."""
+        one = D.init_caches(self.cfg, 1, pool_slots=1, page=self.page, device=self.device)
+        for c, bc in zip(one["layers"], self.caches["layers"]):
+            if "pool" in c:
+                c["pool"] = bc["pool"]
+        toks, bt = (torch.from_numpy(np.ascontiguousarray(a[None])).to(self.device)
+                    for a in (np.asarray(tokens, np.int64), bt_row))
+        with moe_lib.tally(self._counts):
+            logits, one = D.prefill(self.params, toks, self.cfg, self.ctx, one, bt)
+        # copy_ casts the prefill's conv ring to the batch dtype
+        for dst, src in zip(slot_state(self.caches, slot), slot_state(one, 0)):
+            dst.copy_(src)
+        self.caches["lengths"][slot] = len(tokens)
+        return logits
+
+    def save(self, slot: int) -> SlotBlob:
+        """Slot ``slot``'s state to the host tier, behind one
+        synchronisation, and its length."""
+        hs = dev.to_host_tier_many(slot_state(self.caches, slot))
+        return SlotBlob(hs, int(self.caches["lengths"][slot]),
+                        sum(h.nbytes for h in hs))
+
+    def load(self, slot: int, blob: SlotBlob) -> None:
+        """A saved state back into slot ``slot`` (any slot)."""
+        for dst, h in zip(slot_state(self.caches, slot), blob.tensors):
+            dst.copy_(dev.from_host_tier(h, dst))
+        self.caches["lengths"][slot] = blob.length
+
+    def lengths(self) -> np.ndarray:
+        """Every slot's length, in one device-to-host copy."""
+        return self.caches["lengths"].cpu().numpy()
+
+    def upload(self) -> None:
+        """The filled ``inputs`` into the buffers the step reads (the last
+        step's copies are done: its readback waited for them)."""
+        for buf, host in zip(self._in, self._host):
+            buf.copy_(host, non_blocking=True)
+
+    def issue(self, n: int) -> torch.Tensor:
+        """The decode step over the uploaded inputs; returns its next tokens
+        (the logits' argmax) on the device.  ``n``: the active rows."""
+        if self.device.type != "cuda":
+            return self._eager(self._counts)
+        if self._graph is None:
+            return self._capture(n)
+        with spans.span("engine.decode.replay", n=n):
+            self._graph.replay()
+        self.stats.graph_replays += 1
+        self._counts.extend(self._graph_counts)
+        return self._graph_next
+
+    def _eager(self, counts: List[torch.Tensor]) -> torch.Tensor:
+        toks, bt, app_slot, app_off, act = self._in
+        with moe_lib.tally(counts):
+            logits, _ = D.decode_step(self.params, self.caches, toks, self.cfg,
+                                      self.ctx, bt, app_slot, app_off, active=act)
+        return logits.argmax(dim=-1)
+
+    def _capture(self, n: int) -> torch.Tensor:
+        """The first step on the card: run eagerly on a side stream, which
+        loads every kernel and library handle it uses, then captured (not
+        run) over the same buffers.  Returns the eager step's tokens."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            nxt = self._eager(self._counts)
+        cur.wait_stream(side)
+        with spans.span("engine.decode.capture", n=n) as sp:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                self._graph_next = self._eager(self._graph_counts)
+            sp.set(cuda_lib.graph_nodes(graph))
+            graph.instantiate()
+        self._graph = graph
+        return nxt
+
+    def readback(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` (int64, on the device) on the host.  The pending MoE calls'
+        counts come in the same copy: into ``EngineStats`` and, per call, the
+        span marks ``moe.entries`` and ``moe.groups``."""
+        if not self._counts:
+            return t.cpu().numpy()
+        ends = np.cumsum([t.numel()] + [c.numel() for c in self._counts])
+        host = torch.cat([t.reshape(-1), *self._counts]).cpu().numpy()
+        self._counts.clear()
+        for counts in np.split(host, ends)[1:-1]:
+            entries, groups = int(counts.sum()), int(np.count_nonzero(counts))
+            self.stats.moe_entries += entries
+            self.stats.moe_groups += groups
+            spans.mark("moe.entries", n=entries)
+            spans.mark("moe.groups", n=groups)
+        return host[:t.numel()].reshape(t.shape)

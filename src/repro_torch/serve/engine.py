@@ -36,26 +36,17 @@ The data plane stays exact: demoted pages come back bit-identically
 (repointed bytes never moved; streamed ones round-trip through pinned host
 memory), and deleted pages are recomputed by a real re-prefill.
 
-Every prefill runs eagerly, on the device of the caches (``device="cuda"``
-unless the caller asks for the CPU).  A decode step has fixed shapes (the
-batch is ``max_batch``, the block table ``max_batch x max_pages``, inactive
-rows masked) and reads its inputs from buffers the engine fills in place,
-so on the card it is one CUDA graph: captured at the engine's first decode
-step, after that step has run eagerly on a side stream, and replayed on
-the current stream at every later one, where the host tier's copies run
-too (``EngineStats.graph_replays`` counts the replays).  On the CPU the
-step runs eagerly.  The simulated costs (``costs``, ``sim_time_us``,
-``bg_time_us``, ``daemon_us``, ``fence_wait_us`` and the latency reservoirs
-of ``EngineStats``) are the reference's simulation, not measurements of the
-device this runs on.  The rest of ``EngineStats`` counts what happened:
-``wall_time_s`` on the host's clock, ``d2h_bytes``/``h2d_bytes`` the
-bytes moved between the device and the host tier (pool pages, per-slot
-blobs), and ``moe_entries``/``moe_groups`` the dropless MoE's work, counted
-on the device and read back in the copy of a prefill's or a decode step's
-tokens (no other wait).  With ``core.spans`` on, each layer of the engine's
-work records a span (``engine.*``, ``moe.layer`` from the dropless MoE, and
-``host_tier.*`` from ``device_ops``), and each dropless MoE call's counts a
-mark (``moe.entries``, ``moe.groups``) when they are read back.
+The engine is orchestration only.  The caches, each slot's own state (rings,
+SSM state, length), the prefill, the decode step (one CUDA graph on the
+card) and the dropless MoE's counts are the decode batch's
+(``serve/batch.py``); the engine fills the step's inputs and keeps each
+paused sequence's saved state (``_seq_blobs``) unopened.  The simulated
+costs (``costs``, ``sim_time_us``, ``bg_time_us``, ``daemon_us``,
+``fence_wait_us`` and the latency reservoirs) are the reference's
+simulation; the rest of ``EngineStats`` counts what happened,
+``d2h_bytes``/``h2d_bytes`` the bytes moved between the device and the host
+tier.  With ``core.spans`` on, each layer of the work records a span
+(``engine.*``, ``moe.layer``, ``host_tier.*``).
 """
 from __future__ import annotations
 
@@ -81,10 +72,8 @@ from repro_torch.core.policies import Policy, CostModel, VALET, TPU_COSTS
 from repro_torch.core.pool import ValetMempool
 from repro_torch.core.reservoir import LatencyStatsMixin
 from repro_torch.core.tiers import DeviceTier, HostTier
-from repro_torch.kernels import cuda_lib
-from repro_torch.models import decode as D
-from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import ParallelCtx
+from repro_torch.serve.batch import DecodeBatch
 
 
 @dataclass
@@ -158,9 +147,6 @@ class ValetServeEngine:
                 "weight=... (or OrchestrationConfig(weight=...) with "
                 "ValetServeEngine.from_config())", DeprecationWarning,
                 stacklevel=2)
-        self.params = params
-        self.cfg = cfg
-        self.ctx = ctx
         self.torch_device = torch.device(device)
         self.page = page
         self.max_batch = max_batch
@@ -170,11 +156,11 @@ class ValetServeEngine:
         self.step_cost_us = step_cost_us
         self.rng = np.random.default_rng(seed)
 
-        self.infos = D.layer_infos(cfg)
-        self.paged_layers = [i for i, inf in enumerate(self.infos)
-                             if inf.uses_paged]
-        self.caches = D.init_caches(cfg, max_batch, pool_slots=pool_slots,
-                                    page=page, device=self.torch_device)
+        self.stats = EngineStats()
+        self.batch = DecodeBatch(params, cfg, ctx, self.stats,
+                                 max_batch=max_batch, max_pages=self.max_pages,
+                                 pool_slots=pool_slots, page=page,
+                                 device=self.torch_device)
         # multi-tenant serving (§3.4): K engines register with one
         # HostMemoryCoordinator, each leasing KV-pool pages on demand and
         # donating FREE slots back when a co-located engine is under
@@ -216,7 +202,6 @@ class ValetServeEngine:
         self.host = HostTier(release=self.arena.free)
         self._flush_q: deque = deque()   # demoted pages awaiting write-back
         self.flush_batch = flush_batch
-        self.stats = EngineStats()
         # zero-restore applies to lazy migrate policies (valet/valet-mass);
         # os-swap's eager synchronous spill/restore and infiniswap's delete
         # are those baselines' defining behavior and stay untouched
@@ -233,26 +218,7 @@ class ValetServeEngine:
         self._next_page_id = 0
         self._slots_free = list(range(max_batch))
         self._requests: Dict[int, Request] = {}
-        self._seq_blobs: Dict[int, Any] = {}
-        self._moe_counts: List[torch.Tensor] = []   # per dropless MoE call,
-                                                    # not yet read back
-        # a decode step's inputs: tokens, block table, append slot and
-        # offset, active mask; built on the host (pinned on the card), then
-        # copied into the device buffers the step reads
-        on_card = self.torch_device.type == "cuda"
-        shapes = [((max_batch,), torch.int64),
-                  ((max_batch, self.max_pages), torch.int32),
-                  ((max_batch,), torch.int32), ((max_batch,), torch.int32),
-                  ((max_batch,), torch.bool)]
-        self._step_host = [torch.zeros(s, dtype=d, pin_memory=on_card)
-                           for s, d in shapes]
-        self._step_in = [torch.zeros(s, dtype=d, device=self.torch_device)
-                         for s, d in shapes]
-        # the decode step's CUDA graph, its next tokens and the dropless MoE
-        # calls' counts, once captured
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_next: Optional[torch.Tensor] = None
-        self._graph_counts: List[torch.Tensor] = []
+        self._seq_blobs: Dict[int, Any] = {}     # rid -> DecodeBatch.save
 
     @classmethod
     def from_config(cls, params, cfg: ArchConfig, ctx: ParallelCtx,
@@ -284,52 +250,13 @@ class ValetServeEngine:
                    flush_batch=c.flush_batch,
                    device=device)
 
-    # -------------------------------------------------------------- compute
-
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.torch_device)
-
-    def _prefill_one(self, prompt_tokens: np.ndarray, slot: int,
-                     bt_row: np.ndarray):
-        """Prefill one request (B=1) and copy its per-sequence caches into
-        the batch slot.  Pages are written straight into the shared pools."""
-        s = len(prompt_tokens)
-        one = D.init_caches(self.cfg, 1, pool_slots=1, page=self.page,
-                            device=self.torch_device)
-        for li, c in enumerate(one["layers"]):
-            if "pool" in c:
-                c["pool"] = self.caches["layers"][li]["pool"]
-        toks = self._tensor(np.asarray(prompt_tokens, np.int64)[None])
-        with moe_lib.tally(self._moe_counts):
-            logits, one = D.prefill(self.params, toks, self.cfg, self.ctx, one,
-                                    self._tensor(bt_row[None]))
-        for bc, oc in zip(self.caches["layers"], one["layers"]):
-            if "ring" in bc:
-                bc["ring"].k[slot].copy_(oc["ring"].k[0])
-                bc["ring"].v[slot].copy_(oc["ring"].v[0])
-            if "ssm" in bc:
-                # copy_ casts the prefill's conv ring to the batch dtype
-                bc["ssm"]["h"][slot].copy_(oc["ssm"]["h"][0])
-                bc["ssm"]["conv"][slot].copy_(oc["ssm"]["conv"][0])
-        self.caches["lengths"][slot] = s
-        return logits
-
     # --------------------------------------------------------------- paging
-
-    def _kv_pools(self) -> List[torch.Tensor]:
-        """The paged layers' pools in the arena's row order: layer by
-        layer, K then V."""
-        out = []
-        for li in self.paged_layers:
-            pool = self.caches["layers"][li]["pool"]
-            out += [pool.k, pool.v]
-        return out
 
     def _pool_pages_to_host(self, pages, slots) -> None:
         """Copy the pages in pool ``slots`` of every paged layer into the
         host arena and put each into the host tier under its logical page
         in ``pages``.  The copies are issued, not waited for."""
-        ids = self.arena.store(self._kv_pools(), slots)
+        ids = self.arena.store(self.batch.kv_pools(), slots)
         self.stats.d2h_bytes += len(ids) * self.arena.slot_bytes
         for pg, sid in zip(pages, ids):
             self.host.put(pg, sid)
@@ -592,7 +519,7 @@ class ValetServeEngine:
         freed.  The bytes are those of one ``device_ops.stream_page`` per
         page and layer."""
         ids = [self.host.pop(pg) for pg in pages]
-        self.arena.load(self._kv_pools(), ids, slots)
+        self.arena.load(self.batch.kv_pools(), ids, slots)
         self.stats.h2d_bytes += len(ids) * self.arena.slot_bytes
 
     # ------------------------------------------------------------ scheduling
@@ -624,9 +551,10 @@ class ValetServeEngine:
                 raise RuntimeError(f"admit: failed to allocate {need} pages")
             bt = self._block_table_row(req)
             with spans.span("engine.prefill", req.rid, len(req.prompt)):
-                logits = self._prefill_one(req.prompt, req.slot, bt)
+                logits = self.batch.prefill(req.prompt, req.slot, bt)
                 # the prompt's last position yields the first generated token
-                req.tokens_out.append(int(self._readback(logits[0].argmax())))
+                req.tokens_out.append(
+                    int(self.batch.readback(logits[0].argmax())))
         self.stats.tokens += 1
         self.stats.sim_time_us += self.costs.local_write * need
         if req.first_token_us < 0:
@@ -659,8 +587,8 @@ class ValetServeEngine:
                     if not self._alloc_pages(req, need):
                         raise RuntimeError(
                             f"resume: failed to allocate {need} pages")
-                    self._prefill_one(full, req.slot,
-                                      self._block_table_row(req))
+                    self.batch.prefill(full, req.slot,
+                                       self._block_table_row(req))
                 sp.set(need)
                 self.stats.recomputes += 1
                 self.stats.sim_time_us += self.costs.cold_read * need
@@ -673,60 +601,17 @@ class ValetServeEngine:
                 return False
             sp.set(self.stats.restored_pages - restored)
             req.slot = self._slots_free.pop()
-            # ring and SSM caches hold this slot's data only while the
-            # sequence keeps its batch slot; after a pause it re-owns a slot,
-            # so the per-slot state round-trips through a host blob keyed by
-            # rid
+            # a slot's own state (rings, SSM state) is the sequence's only
+            # while it keeps the slot; after a pause it re-owns a slot, so
+            # the state round-trips through a host blob keyed by rid
             blob = self._seq_blobs.pop(req.rid, None)
             if blob is not None:
-                self._write_seq_blob(req.slot, blob, req.rid)
+                self.stats.h2d_bytes += blob.nbytes
+                with spans.span("engine.seq_blob.write", req.rid, blob.nbytes):
+                    self.batch.load(req.slot, blob)
             req.status = "active"
             req.last_active_step = self.step_counter
             return True
-
-    # per-sequence (non-paged) cache spill helpers: the ring of every
-    # sliding-window layer and the SSD state + conv ring of every SSM layer,
-    # all to the host tier behind one synchronisation
-    def _read_seq_blob(self, slot: int, rid: int = -1):
-        with spans.span("engine.seq_blob.read", rid) as sp:
-            keys, xs = [], []
-            for li, c in enumerate(self.caches["layers"]):
-                if "ring" in c:
-                    keys.append((li, "ring"))
-                    xs += [c["ring"].k[slot], c["ring"].v[slot]]
-                if "ssm" in c:
-                    keys.append((li, "ssm"))
-                    xs += [c["ssm"]["h"][slot], c["ssm"]["conv"][slot]]
-            hs = dev.to_host_tier_many(xs)
-            nbytes = sum(h.nbytes for h in hs)
-            self.stats.d2h_bytes += nbytes
-            sp.set(nbytes)
-            out = [{} for _ in self.caches["layers"]]
-            for i, (li, key) in enumerate(keys):
-                out[li][key] = (hs[2 * i], hs[2 * i + 1])
-            out.append(int(self.caches["lengths"][slot]))
-        return out
-
-    def _write_seq_blob(self, slot: int, blob, rid: int = -1):
-        *layers, length = blob
-        nbytes = sum(h.nbytes for e in layers for pair in e.values()
-                     for h in pair)
-        self.stats.h2d_bytes += nbytes
-        with spans.span("engine.seq_blob.write", rid, nbytes):
-            for c, e in zip(self.caches["layers"], layers):
-                if "ring" in e:
-                    ring = c["ring"]
-                    ring.k[slot].copy_(dev.from_host_tier(e["ring"][0],
-                                                          ring.k))
-                    ring.v[slot].copy_(dev.from_host_tier(e["ring"][1],
-                                                          ring.v))
-                if "ssm" in e:
-                    st = c["ssm"]
-                    st["h"][slot].copy_(dev.from_host_tier(e["ssm"][0],
-                                                           st["h"]))
-                    st["conv"][slot].copy_(dev.from_host_tier(e["ssm"][1],
-                                                              st["conv"]))
-            self.caches["lengths"][slot] = length
 
     def _block_table_row(self, req: Request) -> np.ndarray:
         row = np.full((self.max_pages,), -1, np.int32)
@@ -787,7 +672,7 @@ class ValetServeEngine:
                 # demand signal: busy engines are reclaimed from last (§3.4)
                 self.coordinator.note_activity(self._lease.cid, len(active))
             # one device->host transfer for every sequence length this step
-            lengths = self.caches["lengths"].cpu().numpy()
+            lengths = self.batch.lengths()
             # grow pages where the next token crosses a page boundary
             for r in active:
                 pos = int(lengths[r.slot])
@@ -798,15 +683,13 @@ class ValetServeEngine:
             active = [r for r in active if r.status == "active"]
             if not active:
                 return
-            toks, bt, app_slot, app_off, act = (t.numpy()
-                                                for t in self._step_host)
+            toks, bt, app_slot, app_off, act = self.batch.inputs
             bt.fill(-1)
             for a in (toks, app_slot, app_off, act):
                 a.fill(0)
             # one batched KV-page table resolution for the whole decode step
             flat_pages = np.concatenate(
-                [np.asarray(r.pages[: self.max_pages], np.int64)
-                 for r in active]) if active else np.empty(0, np.int64)
+                [np.asarray(r.pages[: self.max_pages], np.int64) for r in active])
             flat_slots = self.gpt.local_slots_batch(flat_pages)
             step_pages = []
             off = 0
@@ -831,14 +714,11 @@ class ValetServeEngine:
             self.tracker.on_write(step_pages, self.step_counter)
         n = len(active)
         with spans.span("engine.decode.upload", n=n):
-            # the last step's copies from the host buffers are done: its
-            # readback waited for them
-            for buf, host in zip(self._step_in, self._step_host):
-                buf.copy_(host, non_blocking=True)
+            self.batch.upload()
         with spans.span("engine.decode.issue", n=n):
-            nxt = self._decode(n)
+            nxt = self.batch.issue(n)
         with spans.span("engine.decode.readback", n=n):
-            nxt = self._readback(nxt)
+            nxt = self.batch.readback(nxt)
             self.stats.steps += 1
             self.stats.sim_time_us += self.step_cost_us \
                 + self.costs.local_write * n
@@ -851,68 +731,6 @@ class ValetServeEngine:
                     self._free_pages(r)
                     r.slot = -1
 
-    def _decode(self, n: int) -> torch.Tensor:
-        """The decode step over the filled input buffers; returns its next
-        tokens (the logits' argmax) on the device.  On the card the first
-        step captures the step as a CUDA graph and every later step replays
-        it; off the card the step runs eagerly."""
-        if self.torch_device.type != "cuda":
-            return self._decode_eager(self._moe_counts)
-        if self._graph is None:
-            return self._capture(n)
-        with spans.span("engine.decode.replay", n=n):
-            self._graph.replay()
-        self.stats.graph_replays += 1
-        self._moe_counts.extend(self._graph_counts)
-        return self._graph_next
-
-    def _decode_eager(self, counts: List[torch.Tensor]) -> torch.Tensor:
-        """The decode step as it is issued; the dropless MoE calls' counts
-        go to ``counts``."""
-        toks, bt, app_slot, app_off, act = self._step_in
-        with moe_lib.tally(counts):
-            logits, _ = D.decode_step(self.params, self.caches, toks, self.cfg,
-                                      self.ctx, bt, app_slot, app_off, active=act)
-        return logits.argmax(dim=-1)
-
-    def _capture(self, n: int) -> torch.Tensor:
-        """The first decode step on the card: it runs eagerly on a side
-        stream, which loads every kernel and library handle the step uses,
-        then the step is captured as a CUDA graph (not run) over the same
-        input buffers and caches.  Returns the eager step's next tokens."""
-        cur = torch.cuda.current_stream(self.torch_device)
-        side = torch.cuda.Stream(self.torch_device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            nxt = self._decode_eager(self._moe_counts)
-        cur.wait_stream(side)
-        with spans.span("engine.decode.capture", n=n) as sp:
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph):
-                self._graph_next = self._decode_eager(self._graph_counts)
-            sp.set(cuda_lib.graph_nodes(graph))
-            graph.instantiate()
-        self._graph = graph
-        return nxt
-
-    def _readback(self, t: torch.Tensor) -> np.ndarray:
-        """``t`` (int64, on the device) on the host.  The entry counts of the
-        dropless MoE calls issued since the last readback come in the same
-        copy: they are added to ``EngineStats`` and, per call, to the span
-        log (``moe.entries``, then ``moe.groups``)."""
-        if not self._moe_counts:
-            return t.cpu().numpy()
-        ends = np.cumsum([t.numel()] + [c.numel() for c in self._moe_counts])
-        host = torch.cat([t.reshape(-1), *self._moe_counts]).cpu().numpy()
-        self._moe_counts.clear()
-        for counts in np.split(host, ends)[1:-1]:
-            entries, groups = int(counts.sum()), int(np.count_nonzero(counts))
-            self.stats.moe_entries += entries
-            self.stats.moe_groups += groups
-            spans.mark("moe.entries", n=entries)
-            spans.mark("moe.groups", n=groups)
-        return host[:t.numel()].reshape(t.shape)
-
     def _preempt(self, req: Request) -> int:
         """Pause a sequence: demote (zero-restore), spill (legacy valet /
         os-swap) or delete (infiniswap) its pool pages + save its per-slot
@@ -921,8 +739,10 @@ class ValetServeEngine:
             n = len(req.pages)
             self.stats.pauses += 1
             if req.slot >= 0:
-                self._seq_blobs[req.rid] = self._read_seq_blob(req.slot,
-                                                               req.rid)
+                with spans.span("engine.seq_blob.read", req.rid) as sp:
+                    blob = self._seq_blobs[req.rid] = self.batch.save(req.slot)
+                    sp.set(blob.nbytes)
+                self.stats.d2h_bytes += blob.nbytes
                 self._slots_free.append(req.slot)
                 req.slot = -1
             if self.policy.evict_action == "delete":

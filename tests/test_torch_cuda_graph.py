@@ -43,10 +43,12 @@ def cuda():
 
 
 class EagerEngine(ValetServeEngine):
-    """The engine with its decode step run eagerly on the card too."""
+    """The engine with its decode batch's step run eagerly on the card too."""
 
-    def _decode(self, n):
-        return self._decode_eager(self._moe_counts)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        b = self.batch
+        b.issue = lambda n: b._eager(b._counts)
 
 
 def granite4h_config():
@@ -90,15 +92,15 @@ def serve(cls, name, cuda):
         eng.submit(rng.integers(2, cfg.vocab, size=n), max_new=new)
     holes = 0
     while eng.step():
-        holes += not eng._step_host[4].numpy().all()
+        holes += not eng.batch.inputs[4].all()
     torch.cuda.synchronize()
     assert all(r.status == "done" for r in eng._requests.values())
     return eng, holes
 
 
 def state(eng):
-    out = [eng.caches["lengths"]]
-    for c in eng.caches["layers"]:
+    out = [eng.batch.caches["lengths"]]
+    for c in eng.batch.caches["layers"]:
         for key in ("pool", "ring"):
             if key in c:
                 out += [c[key].k, c[key].v]

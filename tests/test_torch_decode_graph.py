@@ -193,9 +193,9 @@ def test_cpu_engine_steps_eagerly():
                            pool_slots=12, policy=POLICIES["valet"], device="cpu")
     for n in (5, 9, 7):
         eng.submit(np.arange(2, 2 + n), max_new=4)
-    lengths = eng.caches["lengths"]
+    lengths = eng.batch.caches["lengths"]
     reqs = eng.run(max_steps=100)
     assert all(r.status == "done" for r in reqs)
-    assert eng.stats.graph_replays == 0 and eng._graph is None
-    assert eng.caches["lengths"] is lengths
+    assert eng.stats.graph_replays == 0 and eng.batch._graph is None
+    assert eng.batch.caches["lengths"] is lengths
 

@@ -64,9 +64,9 @@ def test_preempt_restore_roundtrips_kv_exactly(setup, mode):
     req = eng._requests[rid]
     assert eng._admit(req) and req.status == "active" and req.pages
     slots = {pg: eng.gpt.local_slot(pg) for pg in req.pages}
-    before = {li: {pg: (eng.caches["layers"][li]["pool"].k[s].clone(),
-                        eng.caches["layers"][li]["pool"].v[s].clone())
-                   for pg, s in slots.items()} for li in eng.paged_layers}
+    before = {li: {pg: (eng.batch.caches["layers"][li]["pool"].k[s].clone(),
+                        eng.batch.caches["layers"][li]["pool"].v[s].clone())
+                   for pg, s in slots.items()} for li in eng.batch.paged_layers}
 
     eng._preempt(req)
     assert req.status == "paused"
@@ -79,8 +79,8 @@ def test_preempt_restore_roundtrips_kv_exactly(setup, mode):
         assert eng._flush_demoted(None) == len(req.pages)
         assert all(pg in eng.device and pg in eng.host for pg in req.pages)
     assert eng._resume(req) and req.status == "active"
-    for li in eng.paged_layers:
-        pool = eng.caches["layers"][li]["pool"]
+    for li in eng.batch.paged_layers:
+        pool = eng.batch.caches["layers"][li]["pool"]
         for pg in req.pages:
             s = eng.gpt.local_slot(pg)
             assert torch.equal(pool.k[s], before[li][pg][0])
@@ -122,9 +122,9 @@ class PerPageEngine(ValetServeEngine):
         for pg, sl in zip(pages, slots):
             sid = self.host.pop(pg)
             rows = self.arena.view(sid)
-            for i, li in enumerate(self.paged_layers):
-                self.caches["layers"][li]["pool"] = dev.stream_page(
-                    self.caches["layers"][li]["pool"], rows[2 * i],
+            for i, li in enumerate(self.batch.paged_layers):
+                self.batch.caches["layers"][li]["pool"] = dev.stream_page(
+                    self.batch.caches["layers"][li]["pool"], rows[2 * i],
                     rows[2 * i + 1], sl)
                 self.stats.h2d_bytes += rows[2 * i].nbytes + rows[2 * i + 1].nbytes
             self.arena.free([sid])
@@ -168,11 +168,11 @@ def test_zero_restore_streams_in_one_batched_write_per_layer(setup,
     ref_outs, ref_eng = run(PerPageEngine, tparams, tcfg, CTX, prompts,
                             POLICIES, "valet", 10, device="cpu")
     assert calls["stream_page"] == \
-        eng.stats.streamed_pages * len(eng.paged_layers)
+        eng.stats.streamed_pages * len(eng.batch.paged_layers)
     assert outs == ref_outs
     assert_same_stats(ref_eng.stats, eng.stats)
-    for li in eng.paged_layers:
-        pool, ref_pool = (e.caches["layers"][li]["pool"]
+    for li in eng.batch.paged_layers:
+        pool, ref_pool = (e.batch.caches["layers"][li]["pool"]
                           for e in (eng, ref_eng))
         assert torch.equal(pool.k, ref_pool.k)
         assert torch.equal(pool.v, ref_pool.v)

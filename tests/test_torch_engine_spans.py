@@ -183,9 +183,9 @@ def test_byte_counters_follow_the_geometry(runs):
     _, (_, eng, recs) = runs
     st = eng.stats
     page = sum(c["pool"].k[0].nbytes + c["pool"].v[0].nbytes
-               for c in eng.caches["layers"] if "pool" in c)
+               for c in eng.batch.caches["layers"] if "pool" in c)
     blob = 0
-    for c in eng.caches["layers"]:
+    for c in eng.batch.caches["layers"]:
         if "ring" in c:
             blob += c["ring"].k[0].nbytes + c["ring"].v[0].nbytes
         if "ssm" in c:

@@ -62,10 +62,10 @@ def test_preempt_resume_roundtrips_ssm_state_exactly(setups, name):
     reqs = [eng._requests[r] for r in rids]
     assert all(eng._admit(r) for r in reqs)
     req = reqs[1]
-    ssm_layers = [li for li, c in enumerate(eng.caches["layers"])
+    ssm_layers = [li for li, c in enumerate(eng.batch.caches["layers"])
                   if "ssm" in c]
-    assert len(ssm_layers) == len(eng.infos)
-    before = {li: {k: eng.caches["layers"][li]["ssm"][k][req.slot].clone()
+    assert len(ssm_layers) == len(eng.batch.infos)
+    before = {li: {k: eng.batch.caches["layers"][li]["ssm"][k][req.slot].clone()
                    for k in ("h", "conv")} for li in ssm_layers}
     assert any(b["h"].abs().sum() > 0 for b in before.values())
     old_slot = req.slot
@@ -78,5 +78,5 @@ def test_preempt_resume_roundtrips_ssm_state_exactly(setups, name):
     assert eng._resume(req) and req.slot != old_slot
     for li in ssm_layers:
         for k in ("h", "conv"):
-            assert torch.equal(eng.caches["layers"][li]["ssm"][k][req.slot],
+            assert torch.equal(eng.batch.caches["layers"][li]["ssm"][k][req.slot],
                                before[li][k])

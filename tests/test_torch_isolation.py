@@ -135,3 +135,26 @@ def test_port_exports_every_reference_name_read_from_source(module):
     port = importlib.import_module(module.replace("repro", "repro_torch", 1))
     missing = [n for n in names if not hasattr(port, REPLACED.get(n, n))]
     assert not missing, f"{port.__name__} lacks {missing}"
+
+
+def test_serving_engine_leaves_the_data_plane_to_its_batch():
+    """``serve/engine.py`` is orchestration: the decode path, the MoE and
+    the kernels are ``serve/batch.py``'s to import, and the engine names no
+    cache key."""
+    path = ROOT / "src" / "repro_torch" / "serve" / "engine.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods |= {node.module} | {f"{node.module}.{a.name}" for a in node.names}
+    bad = {m for m in mods if m.startswith(("repro_torch.models.decode",
+                                            "repro_torch.models.moe",
+                                            "repro_torch.kernels"))}
+    assert not bad, f"serve/engine.py imports {sorted(bad)}"
+    assert "repro_torch.serve.batch" in mods
+    strings = {n.value for n in ast.walk(tree)
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    keys = strings & {"pool", "ring", "ssm", "h", "conv", "lengths", "layers"}
+    assert not keys, f"serve/engine.py names the cache keys {sorted(keys)}"

@@ -77,7 +77,7 @@ def assert_same_engines(ref_eng, eng):
     assert len(ref_eng.host) == len(eng.host)
     assert len(ref_eng.device) == len(eng.device)
     assert torch.equal(torch.from_numpy(np.array(ref_eng.caches["lengths"])),
-                       eng.caches["lengths"].cpu())
+                       eng.batch.caches["lengths"].cpu())
 
 
 def open_xgates(params, value=0.5):
