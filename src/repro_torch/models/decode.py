@@ -22,7 +22,11 @@ after the layer, so a step never holds two states of more than one layer)
 and ``lengths`` into the tensors ``caches`` holds, and returns ``caches``
 itself.  So a step has fixed inputs and outputs, and the decode batch
 replays it as one CUDA graph on the card (``serve/batch.py``).  The
-prefill's caches are new tensors (its SSM states and cross K/V).
+prefill's caches are new tensors (its SSM states and cross K/V).  Given
+``length``, the prefill takes a prompt padded past its length and is exact
+for the first ``length`` positions with no host read of a device value, so
+the decode batch replays it as one CUDA graph per padded length
+(``pads_exactly`` says which archs it serves).
 
 Kernels on this path: decode attention over the pool is the paged kernel
 (``kernels/paged_attention.py``), reading KV through the block table with no
@@ -320,8 +324,20 @@ def _cross_prefill(xp, h, enc_out, cache, cfg):
     return matmul(a.reshape(b, s, -1), xp["wo"])
 
 
+def pads_exactly(cfg: ArchConfig) -> bool:
+    """Whether ``prefill`` takes ``length``: whether a prompt padded past
+    its length gives the caches and logits of the prompt alone.  Not with
+    a frontend or cross-attention, and not where an MoE's capacity, and so
+    what it drops, depends on the rows of the call."""
+    infos = layer_infos(cfg)
+    if cfg.family == "audio" or any(i.uses_cross for i in infos):
+        return False
+    return cfg.moe is None or cfg.moe.dropless or \
+        not any(i.ffn == "moe" for i in infos)
+
+
 def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
-            block_table, frontend=None):
+            block_table, frontend=None, length=None):
     """Run the prompt through the model, filling every cache in place.
 
     tokens: (B, S) — equal prompt lengths per prefill batch.
@@ -330,11 +346,30 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
     embeddings (required for the audio arch; its encoder runs here) or
     llama-vision's (B, N, d) patch embeddings.  Returns (last_logits,
     caches).
+
+    ``length``: (B,) int64 on the device, each row's prompt length when
+    ``tokens`` is padded past it (``pads_exactly`` archs only; P pages
+    must cover S).  The result is the unpadded prompt's: attention is
+    causal, so the padding after the prompt changes nothing before it;
+    each pool row is written through the masked append up to the prompt's
+    last page (zero past the prompt, as the unpadded write pads); a ring
+    takes each slot's latest position before the length (zero where there
+    is none); the SSM's steps past the length have dt = 0 and its conv
+    ring takes the K - 1 raw rows before it; the dropless MoE computes and
+    counts the prompt's rows only; the logits are the last prompt
+    position's.  No operation reads a device value on the host.
     """
     device = caches["lengths"].device
     tokens = torch.as_tensor(tokens, device=device)
     b, s = tokens.shape
     hd = cfg.resolved_head_dim
+    keep = active = None
+    if length is not None:
+        if frontend is not None or not pads_exactly(cfg):
+            raise ValueError(f"{cfg.name}: a padded prefill is not exact here")
+        # (B, S): the prompt's positions
+        keep = torch.arange(s, device=device)[None] < length[:, None]
+        active = keep.reshape(-1)
     x = scale_embed(params["embed"][tokens].to(ctx.compute_dtype), cfg)
     enc_out = None
     if cfg.family == "audio":
@@ -366,9 +401,12 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
             a = matmul(a.reshape(b, s, -1), ap["wo"])
         if info.uses_ssm:
             y, cache["ssm"] = ssm_lib.ssm_forward(
-                p["ssm"], h, cfg.d_model, cfg.ssm, return_state=True)
+                p["ssm"], h, cfg.d_model, cfg.ssm, return_state=True,
+                length=length)
 
-        if info.uses_paged:
+        if info.uses_paged and length is not None:
+            _append_prompt(cache["pool"], k, v, keep, length, block_table)
+        elif info.uses_paged:
             page = cache["pool"].k.shape[1]
             pad = (-s) % page
             kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -378,7 +416,9 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
             vp = vp.reshape(b, npages, page, cfg.n_kv_heads, hd)
             cache["pool"] = dev.write_prefill_pages(
                 cache["pool"], kp, vp, block_table[:, :npages])
-        if info.uses_ring:
+        if info.uses_ring and length is not None:
+            _fill_ring(cache["ring"], k, v, length)
+        elif info.uses_ring:
             ring = cache["ring"]
             w = ring.k.shape[1]
             take = min(w, s)
@@ -397,12 +437,45 @@ def prefill(params, tokens, cfg: ArchConfig, ctx: ParallelCtx, caches,
         if info.ffn != "none":
             h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
             x = x + scale_residual(_ffn_step(p, h2.reshape(b * s, -1), cfg,
-                                             info).reshape(b, s, -1), cfg)
+                                             info, active).reshape(b, s, -1), cfg)
         new_layers.append(cache)
 
     x = rms_norm(params["final_ln"], x, cfg.norm_eps)
+    if length is None:
+        last = x[:, -1]
+        lengths = torch.full((b,), s, dtype=torch.int32, device=device)
+    else:
+        last = x.gather(1, (length - 1)[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+        lengths = length.to(torch.int32)
     w = unembed_matrix(params, cfg).to(x.dtype)
-    logits = mask_vocab_pad(scale_logits(matmul(x[:, -1], w).float(), cfg), cfg)
-    return logits, {"layers": new_layers,
-                    "lengths": torch.full((b,), s, dtype=torch.int32,
-                                          device=device)}
+    logits = mask_vocab_pad(scale_logits(matmul(last, w).float(), cfg), cfg)
+    return logits, {"layers": new_layers, "lengths": lengths}
+
+
+def _append_prompt(pool, k, v, keep, length, block_table):
+    """A padded prefill's K and V (B, S, n_kv, hd) into the pool: row t of
+    a sequence at ``(block_table[t // page], t % page)``, for t up to the
+    end of the prompt's last page; the rows past the prompt write zeros."""
+    b, s = keep.shape
+    page = pool.k.shape[1]
+    if block_table.shape[1] * page < s:
+        raise ValueError(f"{block_table.shape[1]} pages of {page} do not cover {s} rows")
+    t = torch.arange(s, device=k.device)
+    fill = t[None] < ((length + page - 1) // page * page)[:, None]
+    slot = block_table.gather(1, (t // page)[None].expand(b, -1))
+    kz, vz = (torch.where(keep[..., None, None], a, 0).reshape(b * s, *a.shape[2:])
+              for a in (k, v))
+    dev.append_token_masked(pool, kz, vz, slot.reshape(-1),
+                            (t % page).repeat(b), fill.reshape(-1))
+
+
+def _fill_ring(ring, k, v, length):
+    """A ring after a padded prefill: slot j holds the K and V of the latest
+    position p < length with p = j (mod w), zeros where there is none."""
+    w = ring.k.shape[1]
+    last = (length - 1)[:, None]
+    pos = last - (last - torch.arange(w, device=k.device)) % w        # (B, w)
+    idx = pos.clamp(min=0)[..., None, None].expand(-1, -1, *k.shape[2:])
+    ok = (pos >= 0)[..., None, None]
+    ring.k.copy_(torch.where(ok, k.gather(1, idx), 0))
+    ring.v.copy_(torch.where(ok, v.gather(1, idx), 0))

@@ -239,9 +239,12 @@ def _pad_steps(chunk, s, *ts):
 
 
 def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False, *,
-                mesh=None, axis="model"):
+                mesh=None, axis="model", length=None):
     """Full SSD mixer over a sequence.  x: (B,S,d_model).  ``mesh``: see
-    the module docstring (``return_state`` is for one rank)."""
+    the module docstring (``return_state`` is for one rank).  ``length``:
+    (B,) int64 on x's device, each row's true length where x is padded
+    past it: the steps past it have dt = 0, as ``_pad_steps``' have, and
+    the state returned is the state at the length."""
     b, s, _ = x.shape
     d_inner, n_heads, d_bc = ssm_dims(d_model, ssm)
     g, n = ssm.n_groups, ssm.d_state
@@ -264,6 +267,9 @@ def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False, *,
                                mesh, axis)
     B_mat = _groups(B_mat, n_heads, xs.shape[2], mesh, axis)
     C_mat = _groups(C_mat, n_heads, xs.shape[2], mesh, axis)
+    if length is not None:
+        steps = torch.arange(s, device=x.device)[None, :, None]
+        dt = torch.where(steps < length[:, None, None], dt, 0.0)
 
     chunk = min(ssm.chunk_size, s)
     xs, dt, B_mat, C_mat = _pad_steps(chunk, s, xs, dt, B_mat, C_mat)
@@ -277,6 +283,11 @@ def ssm_forward(params, x, d_model, ssm: SSMConfig, return_state=False, *,
         return out
     # decode-ready state: SSD state + conv ring of the last (K-1) raw xBC
     k = ssm.conv_kernel
+    if length is not None:
+        rows = length[:, None] - (k - 1) + torch.arange(k - 1, device=x.device)
+        got = xbc_raw.gather(1, rows.clamp(min=0)[..., None].expand(
+            -1, -1, xbc_raw.shape[-1]))
+        return out, {"h": hT, "conv": torch.where((rows >= 0)[..., None], got, 0)}
     conv_state = torch.zeros((b, k - 1, d_inner + d_bc), dtype=x.dtype,
                              device=x.device)
     take = min(k - 1, s)

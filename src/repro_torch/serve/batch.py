@@ -7,12 +7,23 @@ table, and each slot's own state) and runs the model over them: a prefill
 into a slot, a slot's state to the host tier and back, the decode step.  A
 step has fixed shapes, so on the card it is one CUDA graph, captured at the
 first step and replayed at every later one; on the CPU it runs eagerly.
+
+A prefill (B=1) on the card is padded to its bucket, the next multiple of
+``GRANULE`` tokens up to the engine's longest sequence, and replayed as
+that bucket's CUDA graph: the bucket's first prefill runs eagerly, then
+the bucket is captured.  The graphs read one device buffer of inputs
+(length, slot, block-table row, tokens), write the shared pools, one
+static set of B=1 caches (rings, SSM state) and a static logits row, and
+copy the B=1 state into the slot on the card.  What the padded prefill
+does not cover (``models.decode.pads_exactly``), a prompt past the largest
+bucket and the CPU take the unpadded prefill, eagerly.
+
 The dropless MoE's counts (``moe.tally``) come to the host in the copy of
 the next ``readback``'s tokens, with no other wait.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,16 +37,25 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import ParallelCtx
 
 
-def slot_state(caches, slot: int) -> List[torch.Tensor]:
-    """Batch slot ``slot``'s own tensors in ``caches``, layer by layer: the
-    ring's K and V, then the SSM state's ``h`` and ``conv``."""
+GRANULE = 256       # tokens: a prefill bucket's multiple (16 pages of 16)
+
+
+def slot_tensors(caches) -> List[torch.Tensor]:
+    """The tensors of ``caches`` that hold a row per batch slot, layer by
+    layer: the ring's K and V, then the SSM state's ``h`` and ``conv``."""
     out = []
     for c in caches["layers"]:
         if "ring" in c:
-            out += [c["ring"].k[slot], c["ring"].v[slot]]
+            out += [c["ring"].k, c["ring"].v]
         if "ssm" in c:
-            out += [c["ssm"]["h"][slot], c["ssm"]["conv"][slot]]
+            out += [c["ssm"]["h"], c["ssm"]["conv"]]
     return out
+
+
+def slot_state(caches, slot: int) -> List[torch.Tensor]:
+    """Batch slot ``slot``'s own tensors in ``caches``: its row of each of
+    ``slot_tensors``."""
+    return [t[slot] for t in slot_tensors(caches)]
 
 
 class SlotBlob(NamedTuple):
@@ -45,6 +65,12 @@ class SlotBlob(NamedTuple):
     nbytes: int
 
 
+class PrefillGraph(NamedTuple):
+    """A bucket's captured prefill and its MoE calls' counts."""
+    graph: "torch.cuda.CUDAGraph"
+    counts: List[torch.Tensor]
+
+
 class DecodeBatch:
     def __init__(self, params, cfg: ArchConfig, ctx: ParallelCtx, stats, *,
                  max_batch: int, max_pages: int, pool_slots: int, page: int,
@@ -52,11 +78,31 @@ class DecodeBatch:
         self.params, self.cfg, self.ctx = params, cfg, ctx
         self.stats = stats               # the engine's EngineStats
         self.page, self.device = page, device
+        self.max_pages = max_pages
         self.infos = D.layer_infos(cfg)
         self.paged_layers = [i for i, inf in enumerate(self.infos) if inf.uses_paged]
         self.caches = D.init_caches(cfg, max_batch, pool_slots=pool_slots, page=page,
                                     device=device)
-        self._counts: List[torch.Tensor] = []   # MoE calls' not read back
+        # MoE calls' counts not read back: (held,), or (calls, held) rows
+        self._counts: List[torch.Tensor] = []
+        # the prefill's B=1 caches, reused by every prefill: the batch's
+        # pools, and one slot of ring and SSM state
+        self._one = D.init_caches(cfg, 1, pool_slots=0, page=page, device=device)
+        for c, bc in zip(self._one["layers"], self.caches["layers"]):
+            if "pool" in c:
+                c["pool"] = bc["pool"]
+        # the padded prefill: its buckets' graphs in one memory pool, their
+        # inputs in one buffer (length, slot, block-table row, tokens),
+        # staged from a host one (pinned on the card), and their logits row
+        self._pads = D.pads_exactly(cfg)
+        n_in = 2 + max_pages + max_pages * page
+        self._prefill_host = torch.zeros(n_in, dtype=torch.int64,
+                                         pin_memory=device.type == "cuda")
+        self._prefill_in = torch.zeros(n_in, dtype=torch.int64, device=device)
+        self._staged = torch.cuda.Event() if device.type == "cuda" else None
+        self._plogits: Optional[torch.Tensor] = None
+        self._pgraphs: Dict[int, PrefillGraph] = {}
+        self._ppool = None
         # the step's inputs (tokens, block table, append slot and offset,
         # active mask): host buffers (pinned on the card) whose numpy views
         # ``inputs`` the engine fills, and the device buffers the step reads
@@ -79,23 +125,99 @@ class DecodeBatch:
         return [t for li in self.paged_layers
                 for t in self.caches["layers"][li]["pool"]]
 
+    def bucket(self, n: int) -> Optional[int]:
+        """The padded length a prefill of ``n`` tokens takes: the next
+        multiple of ``GRANULE``, if the block table covers it and the
+        padded prefill is exact for the arch; else None (unpadded)."""
+        sb = -(-n // GRANULE) * GRANULE
+        return sb if self._pads and sb <= self.max_pages * self.page else None
+
     def prefill(self, tokens: np.ndarray, slot: int, bt_row: np.ndarray) -> torch.Tensor:
         """Prefill one request (B=1) into slot ``slot``: its pages go straight
         into the shared pools through ``bt_row``, its own state is copied
-        into the slot.  Returns the logits."""
-        one = D.init_caches(self.cfg, 1, pool_slots=1, page=self.page, device=self.device)
-        for c, bc in zip(one["layers"], self.caches["layers"]):
-            if "pool" in c:
-                c["pool"] = bc["pool"]
+        into the slot.  Returns the logits (on the card, the graphs' logits
+        row, which the next prefill overwrites)."""
+        n = len(tokens)
+        sb = self.bucket(n)
+        with spans.span("engine.prefill.issue", n=n):
+            if self.device.type != "cuda" or sb is None:
+                return self._unpadded(tokens, slot, bt_row)
+            self.stage(tokens, slot, bt_row, sb)
+            g = self._pgraphs.get(sb)
+            if g is None:
+                self.padded(sb, self._counts)
+                self._capture_prefill(sb)
+                return self._plogits
+            with spans.span("engine.prefill.replay", n=sb):
+                g.graph.replay()
+            self.stats.prefill_replays += 1
+            if g.counts:
+                # out of the graphs' pool before another graph reuses it
+                self._counts.append(torch.stack(g.counts))
+            return self._plogits
+
+    def _unpadded(self, tokens, slot, bt_row) -> torch.Tensor:
+        for c in self._one["layers"]:
+            if "ring" in c:          # the prefill writes only the prompt's tail
+                c["ring"].k.zero_()
+                c["ring"].v.zero_()
         toks, bt = (torch.from_numpy(np.ascontiguousarray(a[None])).to(self.device)
                     for a in (np.asarray(tokens, np.int64), bt_row))
         with moe_lib.tally(self._counts):
-            logits, one = D.prefill(self.params, toks, self.cfg, self.ctx, one, bt)
+            logits, one = D.prefill(self.params, toks, self.cfg, self.ctx, self._one, bt)
         # copy_ casts the prefill's conv ring to the batch dtype
         for dst, src in zip(slot_state(self.caches, slot), slot_state(one, 0)):
             dst.copy_(src)
         self.caches["lengths"][slot] = len(tokens)
         return logits
+
+    def stage(self, tokens, slot: int, bt_row, sb: int) -> None:
+        """A padded prefill's inputs into the buffer its graph reads, in one
+        copy; the tokens zero-padded to ``sb``."""
+        p, n = self.max_pages, 2 + self.max_pages + sb
+        if self._staged is not None:
+            self._staged.synchronize()  # the last copy out of the host buffer ran
+        host = self._prefill_host.numpy()
+        host[:2] = len(tokens), slot
+        host[2:2 + p] = bt_row
+        host[2 + p:2 + p + len(tokens)] = tokens
+        host[2 + p + len(tokens):n] = 0
+        self._prefill_in[:n].copy_(self._prefill_host[:n], non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def padded(self, sb: int, counts: List[torch.Tensor]) -> None:
+        """The staged prompt's prefill at padded length ``sb`` into its slot:
+        logits into the logits row, the slot's state and length copied in
+        on the device.  Fixed shapes and no host read: a bucket's graph."""
+        p, buf = self.max_pages, self._prefill_in
+        length, slot = buf[0:1], buf[1:2]
+        with moe_lib.tally(counts):
+            logits, one = D.prefill(self.params, buf[2 + p:2 + p + sb][None], self.cfg,
+                                    self.ctx, self._one, buf[2:2 + p][None],
+                                    length=length)
+        if self._plogits is None:       # the eager first prefill, before any capture
+            self._plogits = torch.empty_like(logits)
+        self._plogits.copy_(logits)
+        for dst, src in zip(slot_tensors(self.caches), slot_tensors(one)):
+            dst.index_copy_(0, slot, src.to(dst.dtype))
+        self.caches["lengths"].index_copy_(0, slot, one["lengths"])
+
+    def _capture_prefill(self, sb: int) -> None:
+        """Capture bucket ``sb``'s prefill (after its first ran eagerly).  The
+        buckets share one memory pool: a graph's outputs all lie outside it
+        (pools, caches, logits row) but its MoE counts, which ``prefill``
+        copies out after each replay, so replays may come in any order."""
+        if self._ppool is None:
+            self._ppool = torch.cuda.graph_pool_handle()
+        with spans.span("engine.prefill.capture", n=sb) as sp:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            counts: List[torch.Tensor] = []
+            with torch.cuda.graph(graph, pool=self._ppool):
+                self.padded(sb, counts)
+            sp.set(cuda_lib.graph_nodes(graph))
+            graph.instantiate()
+        self._pgraphs[sb] = PrefillGraph(graph, counts)
 
     def save(self, slot: int) -> SlotBlob:
         """Slot ``slot``'s state to the host tier, behind one
@@ -165,10 +287,9 @@ class DecodeBatch:
         span marks ``moe.entries`` and ``moe.groups``."""
         if not self._counts:
             return t.cpu().numpy()
-        ends = np.cumsum([t.numel()] + [c.numel() for c in self._counts])
-        host = torch.cat([t.reshape(-1), *self._counts]).cpu().numpy()
+        host = torch.cat([t.reshape(-1), *(c.reshape(-1) for c in self._counts)]).cpu().numpy()
         self._counts.clear()
-        for counts in np.split(host, ends)[1:-1]:
+        for counts in host[t.numel():].reshape(-1, self.cfg.moe.held):
             entries, groups = int(counts.sum()), int(np.count_nonzero(counts))
             self.stats.moe_entries += entries
             self.stats.moe_groups += groups

@@ -37,8 +37,9 @@ The data plane stays exact: demoted pages come back bit-identically
 memory), and deleted pages are recomputed by a real re-prefill.
 
 The engine is orchestration only.  The caches, each slot's own state (rings,
-SSM state, length), the prefill, the decode step (one CUDA graph on the
-card) and the dropless MoE's counts are the decode batch's
+SSM state, length), the prefill (on the card one CUDA graph per padded
+length), the decode step (one CUDA graph on the card) and the dropless
+MoE's counts are the decode batch's
 (``serve/batch.py``); the engine fills the step's inputs and keeps each
 paused sequence's saved state (``_seq_blobs``) unopened.  The simulated
 costs (``costs``, ``sim_time_us``, ``bg_time_us``, ``daemon_us``,
@@ -124,9 +125,10 @@ class EngineStats(LatencyStatsMixin):
     # on the device and read back with the tokens
     moe_entries: int = 0             # entries the held experts computed
     moe_groups: int = 0              # held (layer call, expert) groups with rows
-    # decode steps replayed as the engine's CUDA graph (the port's own; zero
-    # off the card)
+    # decode steps replayed as the engine's CUDA graph, and prefills as a
+    # bucket's (the port's own; zero off the card)
     graph_replays: int = 0
+    prefill_replays: int = 0
 
 
 class ValetServeEngine:

@@ -131,7 +131,9 @@ def test_spans_nest_in_their_parents_and_carry_step_and_rid(runs):
         assert r.step == p.step
         if r.rid >= 0 and p.rid >= 0:
             assert r.rid == p.rid
-    parents = {"engine.prefill": "engine.admit", "engine.decode": "engine.step",
+    parents = {"engine.prefill": "engine.admit",
+               "engine.prefill.issue": "engine.prefill",
+               "engine.decode": "engine.step",
                "engine.decode.prep": "engine.decode",
                "engine.decode.upload": "engine.decode",
                "engine.decode.issue": "engine.decode",
@@ -150,6 +152,7 @@ def test_spans_nest_in_their_parents_and_carry_step_and_rid(runs):
             assert 0 <= r.rid < len(eng._requests), r
     names = Counter(r.name for r in recs)
     assert names["engine.admit"] == names["engine.prefill"] == 6
+    assert names["engine.prefill.issue"] == 6 + eng.stats.recomputes
     assert names["engine.preempt"] == eng.stats.pauses
     assert names["engine.decode.issue"] == eng.stats.steps
     want = {"engine.make_room", "engine.preempt", "engine.resume"}

@@ -306,7 +306,7 @@ def test_spans_and_marks_of_the_dropless_calls(model):
     recs = spans.take()
     layers = [r for r in recs if r.name == "moe.layer"]
     parents = {recs[r.parent].name for r in layers}
-    assert parents == {"engine.decode.issue", "engine.prefill"}
+    assert parents == {"engine.decode.issue", "engine.prefill.issue"}
     assert len(layers) == arch.n_layers * (2 + eng.stats.steps)
     entries = [r.n for r in recs if r.name == "moe.entries"]
     groups = [r.n for r in recs if r.name == "moe.groups"]
